@@ -3,7 +3,9 @@
 stream, as the JAX package's do, so seeding ``np.random`` seeds both.
 
 Images are float arrays of uint8-range values [0, 255], channel-first.
-Crappifiers only inject noise; the downscale happens upstream.
+Crappifiers only inject noise; the downscale happens upstream.  A
+crappifier's device form, for the training pipeline, is
+``ops/degrade.to_device_fn``.
 """
 
 from abc import ABC, abstractmethod

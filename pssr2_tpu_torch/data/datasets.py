@@ -1,7 +1,8 @@
 """``ImageDataset``, host-side (counterpart: pssr2_tpu/data/datasets.py:
 97-268; reference: pssr/data.py:12-130).  Same arguments, length
 arithmetic, validation split, LR mode and naming; items are float32
-[0, 255] channel-first numpy arrays.
+[0, 255] channel-first numpy arrays, and ``hr_patch`` gives the raw uint8
+HR patch that the training pipeline degrades on the device.
 """
 
 import glob
@@ -18,9 +19,11 @@ from .io import (
     array_ready,
     gen_pair,
     load_image,
+    pad_image,
     probe_frames_and_size,
     probe_shape,
     ready_lr,
+    square_crop,
 )
 
 _DEFAULT_CRAPPIFIER = object()  # sentinel: default Poisson(), but explicit None disables noise
@@ -199,6 +202,15 @@ class ImageDataset(_DatasetBase):
             extra = array_ready(extra, self.transforms)
             return out, extra
         return out
+
+    def hr_patch(self, idx):
+        """Raw uint8 HR window for the device pipeline (crop and pad only;
+        rotation, downscale and crappification happen on the device)."""
+        image_idx, idx = get_image_idx(idx, self.slices)
+        hr = self._load(image_idx, idx)
+        hr = square_crop(hr, self.hr_res)
+        hr = pad_image(hr, self.hr_res)
+        return np.ascontiguousarray(hr).astype(np.uint8)
 
     def __len__(self):
         return sum(self.slices)

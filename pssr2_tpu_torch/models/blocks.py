@@ -1,5 +1,5 @@
-"""Model blocks (counterpart: pssr2_tpu/models/blocks.py:108-335),
-channels-last inside.
+"""Model blocks (counterpart: pssr2_tpu/models/blocks.py:37-105,
+108-335), channels-last inside, in train and eval mode.
 
 Module and parameter names follow the reference ``.pth`` layout that
 pssr2_tpu/torch_import.py:51-80 describes (``conv.{3i}`` conv,
@@ -56,13 +56,17 @@ class Reconstruction(nn.Module):
 
 class ResBlock(nn.Module):
     """Conv stack with BatchNorm and a residual 1x1 pass
-    (reference: pssr/models/_blocks.py:20-41), eval mode.
+    (reference: pssr/models/_blocks.py:20-41).
 
-    Every 3x3 layer goes through the convchain kernel.  Layer i's
-    BatchNorm apply and ReLU ride as layer i+1's prologue, as
-    ``_convchain_call`` (pssr2_tpu/models/blocks.py:238-333) chains them.
-    The last layer's BatchNorm apply, the residual pass and the final ReLU
-    are plain PyTorch.
+    Every 3x3 layer goes through the convchain kernels, forward and
+    backward.  Layer i's BatchNorm apply and ReLU ride as layer i+1's
+    prologue, as ``_convchain_call`` (pssr2_tpu/models/blocks.py:238-333)
+    chains them; the BatchNorm takes its statistics from the kernel's
+    (sum, sum of squares) in train mode.  There the conv bias is added
+    under stop-gradient (``SGBiasConv``, blocks.py:37-105): a train-mode
+    BatchNorm cancels it, so its gradient is exactly zero.  The last
+    layer's BatchNorm apply, the residual pass and the final ReLU are
+    plain PyTorch.
     """
 
     def __init__(self, in_channels, out_channels, depth, *, device=None):
@@ -79,11 +83,13 @@ class ResBlock(nn.Module):
         self.depth = depth
 
     def forward(self, x):
+        count = x.shape[0] * x.shape[1] * x.shape[2]
         h, ab = x, None
         for i in range(self.n_layers):
             cv, norm = self.conv[3 * i], self.conv[3 * i + 1]
-            h, _, _ = fused_conv_layer(h, cv.weight, cv.bias, ab)
-            a, b = norm.apply_coeffs()
+            bias = cv.bias.detach() if norm.training else cv.bias
+            h, s1, s2 = fused_conv_layer(h, cv.weight, bias, ab)
+            a, b = norm.apply_coeffs(s1, s2, count)
             ab = torch.stack([a, b])
         h = (h.float() * ab[0] + ab[1]).to(h.dtype)
         return torch.relu(h + conv_nhwc(x, self.respass))

@@ -3,8 +3,10 @@ pssr2_tpu/models/resunet.py:66-228; reference: pssr/models/resunet.py).
 
 NCHW float [0, 255] in and out (``x/128 - 1`` in front, ``*128 + 128``
 behind), NHWC inside.  Parameters are f32; ``dtype=torch.bfloat16`` runs
-the compute in bf16, as the JAX ``dtype`` argument does.  Eval only in
-this slice.
+the compute in bf16, as the JAX ``dtype`` argument does.  A new model is
+in eval mode; ``model.train()`` switches every BatchNorm to batch
+statistics (and the ResBlock convs to a stop-gradient bias), as the JAX
+model's ``train()`` does.
 """
 
 import torch

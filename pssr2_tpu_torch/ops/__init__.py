@@ -1,3 +1,6 @@
-"""Compute primitives of the port: pixel shuffle, pooling, eval-mode
-BatchNorm coefficients, the PIL-matched resize, and the hand-written
-convchain kernel (``ops/convchain.py`` + ``csrc/convchain.cu``)."""
+"""Compute primitives of the port: pixel shuffle, pooling, BatchNorm
+(train and eval), the PIL-matched resize (host and device), the device
+crappifiers, SSIM, and the hand-written kernels: convchain forward and
+backward (``ops/convchain.py`` + ``csrc/convchain.cu``,
+``csrc/convchain_bwd.cu``) and fused SSIM forward and backward
+(``ops/ssimfused.py`` + ``csrc/ssimfused.cu``)."""

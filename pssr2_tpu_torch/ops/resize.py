@@ -1,11 +1,12 @@
-"""PIL-BILINEAR-matched resize on the host (counterpart:
-pssr2_tpu/ops/resize.py:20-85).  PIL's bilinear downscale is an
-antialiased triangle filter whose support grows with the downscale ratio;
-the weights below mirror PIL's ``precompute_coeffs``."""
+"""PIL-BILINEAR-matched resize, on the host and on the device
+(counterpart: pssr2_tpu/ops/resize.py:20-85).  PIL's bilinear downscale is
+an antialiased triangle filter whose support grows with the downscale
+ratio; the weights below mirror PIL's ``precompute_coeffs``."""
 
 import functools
 
 import numpy as np
+import torch
 
 
 @functools.lru_cache(maxsize=64)
@@ -43,3 +44,20 @@ def resize_bilinear_np(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     ww = _resize_weights(in_w, out_w)
     # optimize=True contracts pairwise (the naive einsum is O(H*W*out_h*out_w))
     return np.einsum("...hw,hi,wj->...ij", image.astype(np.float32), wh, ww, optimize=True)
+
+
+@functools.lru_cache(maxsize=16)
+def _weights_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_resize_weights(in_size, out_size)).to(device)
+
+
+def resize_bilinear(image: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """:func:`resize_bilinear_np` on a tensor, on its device: two f32
+    matrix products, ``out[..., i, j] = sum_{h,w} image[..., h, w] *
+    Wh[h, i] * Ww[w, j]`` (TF32 is off for the package)."""
+    in_h, in_w = image.shape[-2], image.shape[-1]
+    if (in_h, in_w) == (out_h, out_w):
+        return image
+    wh = _weights_on(in_h, out_h, image.device)
+    ww = _weights_on(in_w, out_w, image.device)
+    return torch.matmul(torch.matmul(wh.T, image.float()), ww)

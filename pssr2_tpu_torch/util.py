@@ -1,13 +1,112 @@
-"""Utilities of the prediction slice: prediction normalization, the pixel
-metric and the callback protocol (counterpart: pssr2_tpu/util.py:301-411;
+"""Utilities: the losses, prediction normalization, the pixel metric and
+the callback protocol (counterpart: pssr2_tpu/util.py:19-180, 301-411;
 reference: pssr/util.py)."""
 
 import inspect
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from .ops.resize import resize_bilinear_np
+from .ops.ssim import _blur, ssim
+
+
+class MSELoss:
+    """Mean-squared-error loss with a per-sample variant (torch MSELoss parity)."""
+
+    def __call__(self, input, target):
+        return torch.mean((input - target) ** 2)
+
+    def per_sample(self, input, target):
+        return torch.mean((input - target) ** 2, dim=tuple(range(1, input.dim())))
+
+
+class SSIMLoss:
+    def __init__(self, channels: int = 1, mix: float = 0.8, win_size: int = 11, win_sigma: float = 1.5,
+                 ms: bool = True, kwargs=None, dtype=None):
+        """SSIM loss with Mix as detailed in Zhao et al., 2018
+        (reference: pssr/util.py:10-52): ``mix * (1 - SSIM) + (1 - mix) *
+        windowed L1``.
+
+        Args:
+            channels (int) : Number of channels in image. Default is 1.
+
+            mix (float) : Mix of SSIM loss in loss calculation. 1 is entirely
+                SSIM, 0 is entirely L1 with Gaussian correction. Default is 0.8.
+
+            win_size (int) : Size of Gaussian window. Must be odd. Default is 11.
+
+            win_sigma (float) : Sigma of the Gaussian window. Default is 1.5.
+
+            ms (bool) : Use MS-SSIM over basic SSIM.  MS-SSIM is not ported
+                yet: ``ms=True`` raises until the multi-scale kernels
+                (level 0 and pool) are; pass ``ms=False``.
+
+            kwargs : Extra kwargs forwarded to the ssim implementation.
+
+            dtype : Optional compute dtype for the loss (None keeps float32;
+                the SSIM kernel takes float32 only).
+        """
+        if ms:
+            raise NotImplementedError(
+                "SSIMLoss(ms=True): MS-SSIM is not ported yet; it comes with the level-0 and "
+                "pool SSIM kernels of the next training slice. Pass ms=False."
+            )
+        self.channels = channels
+        self.win_size = win_size
+        self.win_sigma = win_sigma
+        self.ms = ms
+        self.mix = mix
+        self.kwargs = {} if kwargs is None else kwargs
+        self.dtype = dtype
+
+    def _ssim_val(self, input, target, size_average):
+        return ssim(
+            input,
+            target,
+            data_range=1,
+            win_size=self.win_size,
+            win_sigma=self.win_sigma,
+            size_average=size_average,
+            **self.kwargs,
+        )
+
+    def _l1_windowed(self, input, target, per_sample):
+        # Gaussian-windowed L1: the window over the unreduced L1 map with
+        # zero padding, per channel (reference util.py:48-51)
+        l1 = torch.abs(input - target)
+        pad = (self.win_size - 1) // 2
+        out = _blur(F.pad(l1, (pad, pad, pad, pad)), self.win_size, self.win_sigma)
+        if per_sample:
+            return out.mean(dim=tuple(range(1, out.dim())))
+        return out.mean()
+
+    def _cast(self, input, target):
+        if self.dtype is not None:
+            return input.to(self.dtype), target.to(self.dtype)
+        return input, target
+
+    def scaled(self, input, target, divisor):
+        """``loss(input / divisor, target / divisor)``."""
+        input, target = self._cast(input, target)
+        return self(input / divisor, target / divisor)
+
+    def __call__(self, input, target):
+        input, target = self._cast(input, target)
+        x = 1 - self._ssim_val(input, target, size_average=True)
+        if self.mix < 1:
+            x = self.mix * x + (1 - self.mix) * self._l1_windowed(input, target, per_sample=False)
+        return x
+
+    def per_sample(self, input, target):
+        """(B,) per-sample losses, for exact masked reduction over padded batches."""
+        input, target = self._cast(input, target)
+        x = 1 - self._ssim_val(input, target, size_average=False)
+        if self.mix < 1:
+            x = self.mix * x + (1 - self.mix) * self._l1_windowed(input, target, per_sample=True)
+        return x
 
 
 def normalize_preds(hr, hr_hat, pmin: float = 0.1, pmax: float = 99.9):

@@ -50,7 +50,13 @@ def params_from_jax(flat) -> dict:
     """The port's ``state_dict`` (CPU f32 tensors) from the JAX model's
     flat parameters and batch stats (a mapping of ``/``-joined paths to
     arrays, e.g. ``np.load`` of a ``save_weights`` file).  HWIO conv
-    kernels become OIHW."""
+    kernels become OIHW.
+
+    Any subset of those keys maps, so the same call carries the JAX
+    gradients (the flattened ``nnx.grad`` state: parameters only, named as
+    the parameters) to the port's parameter names and layout, and the
+    running statistics of a model after a train step, for comparing the
+    two packages key by key."""
     out = {}
     for key in flat:
         arr = np.asarray(flat[key], dtype=np.float32)

@@ -110,7 +110,7 @@ def test_layer_matches_fusedlayer_reference(dtype_name):
 
 def test_cpu_tensor_takes_plain_version():
     """A CPU tensor goes to the plain version, which launches nothing and
-    stays differentiable (the card's wrapper is forward only)."""
+    stays differentiable."""
     x, k, b, _ = _inputs(3, 8)
     w = torch.from_numpy(np.transpose(k, (3, 2, 0, 1)).copy()).requires_grad_()
     y, _, _ = tconvchain.fused_conv_layer(torch.from_numpy(x), w, torch.from_numpy(b))
