@@ -12,8 +12,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the shapes the main paths give it, with times (CUDA events), its bound
    and a library yardstick: the convchain forward and backward at every
    distinct ResBlock layer shape of the full-width ResUNet x4 at batch 16,
-   in f32 and bf16, with the prologue on and off; the SSIM forward and
-   backward at (16, 1, 512, 512) f32;
+   in f32 and bf16, with the prologue on and off; the SSIM kernels at the
+   shapes of one MS-SSIM loss at batch 16 (level 0 at 512^2 with the divide
+   by 255, the pool levels at 256^2, 128^2 and 64^2, the last level at
+   32^2), the single-scale SSIM at 512^2 and at windows 7 and 15, and one
+   bf16 ssim call, which takes the band-matrix path;
 4. serving: ``predict_images`` with the full-width ``ResUNet()`` x4 on 32
    synthetic 128^2 -> 512^2 tiles in f32 and bf16, with the kernels'
    launch counts read around each run, and two f32 tiles held against the
@@ -21,8 +24,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
 5. training: the full-width ``ResUNet()`` in train mode, a few steps in
    bf16 and in f32 on 512^2 uint8 patches from ``PatchLoader`` at batch 16
    (device augment, downscale, Poisson noise; ``SSIMLoss(mix=0.8,
-   ms=False)``; AdamW), with the launch counts checked per step, then one
-   f32 step on 2 samples held against the same step on the CPU.
+   ms=True)``; AdamW), with the launch counts checked per step, then one
+   f32 step on 2 samples held against the same step on the CPU;
+6. train_paired: the full-width model in bf16 compute, batch 16, over the
+   32 tiles with validation, a ReduceLROnPlateau, weight checkpoints and a
+   state directory, for 2 epochs, then resumed by a second call to 3, with
+   the epoch times and every kernel's launches checked.
 
 The last two lines are a JSON line of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  This script imports nothing of
@@ -73,6 +80,14 @@ SSIM_SHAPE = (BATCH, 1, LR_RES * SCALE, LR_RES * SCALE)
 # gradient).  Fixed bounds: "loss" (abs), "param" (abs, after the step) and
 # "stat" (relative error of the running statistics).
 PERTURB, SELF_FACTOR = 1e-7, 3.0
+# bf16 ssim (band path) against the f32 kernel on the same maps, unit scale:
+# the five moments round to 8 bits (an ulp at 1 is 0.0039) before E[x^2] -
+# E[x]^2; on the CPU the mean moved by 7e-4 at such maps.
+BF16_SSIM_TOL = 0.02
+# train_paired: epochs of the first call, then of the resumed second call,
+# and the share of the TILES held out for validation (8 of 32: one partial
+# validation batch, and 24 training patches, 2 steps an epoch)
+TP_EPOCHS, TP_VAL_SPLIT = (2, 3), 0.25
 STEP_TOL = {"loss": 1e-4, "param": 2.001 * LR_RATE, "stat": 1e-3}
 
 
@@ -133,20 +148,31 @@ def bwd_bound_ms(n, res, cin, cout, dtype, prologue):
     return bound(nbytes, 2 * 2.0 * n * res * res * 9 * cin * cout, dtype)
 
 
-def ssim_bound_ms(b, h, w, backward):
-    """Bound of the SSIM forward (x, y read, two sums per image written) or
-    backward (x, y and the two cotangents read, gx, gy written), f32.
-    Operations: the three products per pixel, the separable 11-tap blur of
-    five maps (horizontal over H x W', vertical over H' x W', 2 operations
-    a tap) and about 19 operations of map arithmetic and sums per VALID
-    pixel; the backward adds about 30 per VALID pixel for the four maps,
-    their transposed blur (horizontal over H' x W, vertical over H x W) and
-    8 per pixel for gx and gy."""
-    hp, wp = h - 10, w - 10
-    ops = 3 * h * w + 110 * (h * wp + hp * wp) + 19 * hp * wp
+def ssim_bound_ms(b, h, w, backward, win=11, pool=False, l0=False):
+    """Bound of an SSIM kernel (f32) on (b, h, w) maps with a ``win``-tap
+    window.  Bytes: x, y read and the sums per image written (forward), or
+    x, y and the cotangents read and gx, gy written (backward); the pooled
+    maps written (forward) or their cotangents read (backward) with
+    ``pool``.  Operations: the three products per pixel, the separable blur
+    of five maps (horizontal over H x W', vertical over H' x W', 2 a tap)
+    and about 19 of map arithmetic and sums per VALID pixel; the backward
+    adds about 30 per VALID pixel for the four maps, their transposed blur
+    (horizontal over H' x W, vertical over H x W) and 8 per pixel for gx
+    and gy.  ``pool`` adds 7 per pooled pixel for each of x, y (forward) or
+    2 per pixel for each of gx, gy (backward); ``l0`` adds the two divides
+    per pixel, and the L1 term: 5 per pixel (forward), 6 (backward), plus
+    the two divides of gx, gy."""
+    hp, wp = h - win + 1, w - win + 1
+    ops = 3 * h * w + 2 * 5 * win * (h * wp + hp * wp) + 19 * hp * wp
     if backward:
-        ops += 11 * hp * wp + 88 * (hp * w + h * w) + 8 * h * w
+        ops += 11 * hp * wp + 2 * 4 * win * (hp * w + h * w) + 8 * h * w
     nbytes = 4 * b * h * w * (4 if backward else 2) + 4 * 2 * b
+    if pool:
+        ops += 4 * h * w if backward else 2 * 7 * (h // 2) * (w // 2)
+        nbytes += 4 * b * 2 * (h // 2) * (w // 2)
+    if l0:
+        ops += 2 * h * w + (8 if backward else 5) * h * w
+        nbytes += 4 * b
     return bound(nbytes, float(b * ops), torch.float32)
 
 
@@ -282,66 +308,139 @@ def check_bwd(device, gen):
     return totals
 
 
-def check_ssim(device, gen):
-    """Phase 3c: the SSIM forward and backward kernels against
-    reference_parts (band-matrix blur, autograd) at the loss's shape;
-    returns their numbers for the kernels line."""
+def _ssim_case(device, gen, kind, h, win=11, divisor=1.0):
+    """One SSIM kernel pair (forward, backward) against its plain version
+    on (BATCH, 1, h, h) f32 maps: errors, and times of the kernel, the
+    plain version and a library yardstick.  ``kind``: "ssim" (row 5),
+    "pool" (row 4) or "l0" (row 3, with ``divisor``)."""
     from pssr2_tpu_torch.ops import ssimfused
     from pssr2_tpu_torch.ops.ssim import _gaussian_window
 
-    b, _, h, w = SSIM_SHAPE
-    c1, c2, win, sigma = 0.01**2, 0.03**2, 11, 1.5
-    y = torch.rand(SSIM_SHAPE, device=device, generator=gen)
-    x = y + 0.05 * torch.randn(SSIM_SHAPE, device=device, generator=gen)
-    xs, ys = x.view(b, h, w), y.view(b, h, w)
-    g_s = torch.randn(b, device=device, generator=gen)
-    g_cs = torch.randn(b, device=device, generator=gen)
+    b, c1, c2, sigma = BATCH, 0.01**2, 0.03**2, 1.5
+    shape = (b, 1, h, h)
+    y = divisor * torch.rand(shape, device=device, generator=gen)
+    x = y + 0.05 * divisor * torch.randn(shape, device=device, generator=gen)
+    xs, ys = x.view(b, h, h), y.view(b, h, h)
+    pool, l0 = kind != "ssim", kind == "l0"
+    cot = {"s": torch.randn(b, device=device, generator=gen), "cs": torch.randn(b, device=device, generator=gen)}
+    if l0:
+        cot["l1"] = torch.randn(b, device=device, generator=gen)
+    if pool:
+        for k in ("xp", "yp"):
+            cot[k] = torch.randn(b, h // 2, h // 2, device=device, generator=gen)
+    fwd_args = (xs, ys, c1, c2, win, sigma, divisor, l0, pool)
+    bwd_args = (xs, ys, cot["s"], cot["cs"], c1, c2, win, sigma, divisor, cot.get("l1"), cot.get("xp"), cot.get("yp"))
+    s, cs, l1, xp, yp = ssimfused._launch_fwd(*fwd_args)
+    gx, gy = ssimfused._launch_bwd(*bwd_args)
 
-    s, cs = ssimfused._launch_fwd(xs, ys, c1, c2, win, sigma)
-    gx, gy = ssimfused._launch_bwd(xs, ys, g_s, g_cs, c1, c2, win, sigma)
+    plain = {"ssim": ssimfused.reference_parts, "pool": ssimfused.reference_parts_pool,
+             "l0": ssimfused.reference_level0}[kind]
+    extra = (divisor,) if l0 else ()
     xr, yr = x.clone().requires_grad_(), y.clone().requires_grad_()
-    s_ref, cs_ref = ssimfused.reference_parts(xr, yr, c1, c2, win, sigma)
-    cot = (g_s.view(b, 1), g_cs.view(b, 1))
-    gx_ref, gy_ref = torch.autograd.grad((s_ref, cs_ref), (xr, yr), cot, retain_graph=True)
+    refs = plain(xr, yr, c1, c2, win, sigma, *extra)
+    keys = ["s", "cs"] + (["l1"] if l0 else []) + (["xp", "yp"] if pool else [])
+    cots = [cot[k].view(refs[i].shape) for i, k in enumerate(keys)]
+    gx_ref, gy_ref = torch.autograd.grad(refs, (xr, yr), cots, retain_graph=True)
     torch.cuda.synchronize()
+    got = {"s": s, "cs": cs, "l1": l1, "xp": xp, "yp": yp}
     tol = ssimfused.TOLERANCE
-    errs = {
-        "s": ((s - s_ref.view(b)).abs().max().item(), tol["s"]),
-        "cs": ((cs - cs_ref.view(b)).abs().max().item(), tol["cs"]),
-        "gx": ((gx - gx_ref.view(b, h, w)).abs().max().item(), tol["g"] * gx_ref.abs().max().item()),
-        "gy": ((gy - gy_ref.view(b, h, w)).abs().max().item(), tol["g"] * gy_ref.abs().max().item()),
-    }
+    errs = {}
+    for i, k in enumerate(keys):
+        ref = refs[i].detach().reshape(got[k].shape)
+        lim = tol["pool"] * ref.abs().max().item() if k in ("xp", "yp") else tol[k]
+        errs[k] = ((got[k] - ref).abs().max().item(), lim)
+    for k, g, ref in (("gx", gx, gx_ref), ("gy", gy, gy_ref)):
+        ref = ref.view(b, h, h)
+        errs[k] = ((g - ref).abs().max().item(), tol["g"] * ref.abs().max().item())
 
-    g = torch.from_numpy(_gaussian_window(win, sigma)).to(device)
-    window = torch.outer(g, g).view(1, 1, win, win)
-    moments = torch.cat([x, y, x * x, y * y, x * y])  # (5B, 1, H, W)
-    maps = torch.randn(4 * b, 1, h - win + 1, w - win + 1, device=device, generator=gen)
+    # yardsticks: one cuDNN call per part of the function (the port never calls them)
+    g1 = torch.from_numpy(_gaussian_window(win, sigma)).to(device)
+    window = torch.outer(g1, g1).view(1, 1, win, win)
+    xd, yd = (x / divisor, y / divisor) if l0 else (x, y)
+    moments = torch.cat([xd, yd, xd * xd, yd * yd, xd * yd])  # (5B, 1, H, W)
+    maps = torch.randn(4 * b, 1, h - win + 1, h - win + 1, device=device, generator=gen)
+    pair, absdiff = torch.cat([xd, yd]), (xd - yd).abs()
+
+    def library_fwd():
+        F.conv2d(moments, window)
+        if l0:
+            F.conv2d(absdiff, window, padding=win // 2)
+        if pool:
+            F.avg_pool2d(pair, 2)
+
     with torch.no_grad():
-        k_fwd = cuda_ms(lambda: ssimfused._launch_fwd(xs, ys, c1, c2, win, sigma))
-        p_fwd = cuda_ms(lambda: ssimfused.reference_parts(x, y, c1, c2, win, sigma))
-        l_fwd = cuda_ms(lambda: F.conv2d(moments, window))
-        k_bwd = cuda_ms(lambda: ssimfused._launch_bwd(xs, ys, g_s, g_cs, c1, c2, win, sigma))
+        k_fwd = cuda_ms(lambda: ssimfused._launch_fwd(*fwd_args))
+        p_fwd = cuda_ms(lambda: plain(x, y, c1, c2, win, sigma, *extra))
+        l_fwd = cuda_ms(library_fwd)
+        k_bwd = cuda_ms(lambda: ssimfused._launch_bwd(*bwd_args))
         l_bwd = cuda_ms(lambda: F.conv_transpose2d(maps, window))
-    p_bwd = cuda_ms(lambda: torch.autograd.grad((s_ref, cs_ref), (xr, yr), cot, retain_graph=True))
+    p_bwd = cuda_ms(lambda: torch.autograd.grad(refs, (xr, yr), cots, retain_graph=True))
     out = {}
-    for name, k_ms, p_ms, l_ms, bwd, keys in (
-        ("ssim_fwd", k_fwd, p_fwd, l_fwd, False, ("s", "cs")),
-        ("ssim_bwd", k_bwd, p_bwd, l_bwd, True, ("gx", "gy")),
-    ):
-        b_ms, b_by = ssim_bound_ms(b, h, w, bwd)
-        ok = all(errs[k][0] <= errs[k][1] for k in keys)
+    for bwd, k_ms, p_ms, l_ms, names in ((False, k_fwd, p_fwd, l_fwd, keys), (True, k_bwd, p_bwd, l_bwd, ["gx", "gy"])):
+        b_ms, b_by = ssim_bound_ms(b, h, h, bwd, win, pool, l0)
+        ok = all(errs[k][0] <= errs[k][1] for k in names)
+        out["bwd" if bwd else "fwd"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                                        "bound_by": b_by, "max_abs_err": max(errs[k][0] for k in names)}
         print(
-            f"phase kernels: {name} vs plain at {SSIM_SHAPE} f32: "
-            + " ".join(f"{k} {errs[k][0]:.3g} <= {errs[k][1]:.3g}" for k in keys)
-            + f" | kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            + f"{'F.conv_transpose2d of the 4 maps' if bwd else 'F.conv2d of the 5 moment maps'} {l_ms:.4f} ms, "
-            + f"bound {b_ms:.4f} ms ({b_by})" + ("" if ok else "  <-- DISAGREES")
+            f"  {kind}_{'bwd' if bwd else 'fwd'} {shape} win {win}" + (f" /{divisor:g}" if l0 else "") + ": "
+            + " ".join(f"{k} {errs[k][0]:.3g} <= {errs[k][1]:.3g}" for k in names)
+            + f" | kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+            + ("" if ok else "  <-- DISAGREES")
         )
         if not ok:
-            raise RuntimeError(f"{name} disagrees with its plain version: {errs}")
-        out[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "max_abs_err": max(errs[k][0] for k in keys)}
+            raise RuntimeError(f"{kind} SSIM kernel disagrees with its plain version at {shape}: {errs}")
     return out
+
+
+def _sum_cases(cases):
+    """Totals over several shapes of one kernel (the MS-SSIM pool levels)."""
+    tot = {k: sum(c[k] for c in cases) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by = {}
+    for c in cases:
+        by[c["bound_by"]] = by.get(c["bound_by"], 0.0) + c["bound_ms"]
+    return dict(tot, bound_by=max(by, key=by.get), max_abs_err=max(c["max_abs_err"] for c in cases))
+
+
+def check_ssim(device, gen):
+    """Phase 3c: the SSIM kernels against their plain versions at the
+    shapes of one MS-SSIM loss at batch 16 (level 0 at 512^2, the pool
+    levels at 256^2, 128^2 and 64^2, the last level at 32^2) and of the
+    metrics' single-scale SSIM at 512^2, with times, bounds and library
+    yardsticks (library: cuDNN's conv2d of the five moment maps, plus the
+    L1 map's SAME conv2d for level 0 and avg_pool2d of x and y for the
+    pooling kernels; backward: conv_transpose2d of the four maps); row 5 at
+    windows 7 and 15 too, and one bf16 ssim call on the band path.
+    Returns the numbers for the kernels line."""
+    from pssr2_tpu_torch.ops import ssimfused
+    from pssr2_tpu_torch.ops.ssim import ssim
+
+    res = LR_RES * SCALE
+    print("phase kernels: SSIM kernels (forward 1 launch, backward 2) vs plain at batch 16, f32: "
+          "max abs error <= bound | ms of kernel, plain, library; bound")
+    l0 = _ssim_case(device, gen, "l0", res, divisor=255.0)
+    pools = [_ssim_case(device, gen, "pool", res >> i) for i in (1, 2, 3)]
+    single = _ssim_case(device, gen, "ssim", res)
+    _ssim_case(device, gen, "ssim", res >> 4)
+    for win in (7, 15):
+        _ssim_case(device, gen, "ssim", res, win=win)
+
+    y = torch.rand(SSIM_SHAPE, device=device, generator=gen)
+    x = y + 0.05 * torch.randn(SSIM_SHAPE, device=device, generator=gen)
+    before = _counts()
+    s16 = ssim(x.bfloat16(), y.bfloat16(), data_range=1.0).float().item()
+    launched = tuple(a - b for a, b in zip(_counts(), before))
+    s32 = ssim(x, y, data_range=1.0).item()
+    ok = abs(s16 - s32) <= BF16_SSIM_TOL and not any(launched)
+    print(f"  bf16 ssim on the band path at {SSIM_SHAPE}: {s16:.6f} vs f32 kernel {s32:.6f}, "
+          f"|diff| {abs(s16 - s32):.3g} <= {BF16_SSIM_TOL}; kernel launches during it {launched}"
+          + ("" if ok else "  <-- DISAGREES"))
+    if not ok:
+        raise RuntimeError(f"bf16 ssim: {s16} vs {s32}, launches {launched}")
+    return {
+        "ssim_l0_fwd": l0["fwd"], "ssim_l0_bwd": l0["bwd"],
+        "ssim_pool_fwd": _sum_cases([p["fwd"] for p in pools]), "ssim_pool_bwd": _sum_cases([p["bwd"] for p in pools]),
+        "ssim_fwd": single["fwd"], "ssim_bwd": single["bwd"],
+    }
 
 
 def write_tiles(root, seed):
@@ -422,10 +521,17 @@ def run_slice(device, seed, card, root, tmp):
     return launches
 
 
+# the launch counters, in the order of _counts()
+COUNTERS = ("convchain_fwd", "convchain_bwd", "ssim_fwd", "ssim_bwd", "ssim_pool_fwd", "ssim_pool_bwd",
+            "ssim_l0_fwd", "ssim_l0_bwd")
+
+
 def _counts():
     from pssr2_tpu_torch.ops import convchain, ssimfused
 
-    return (convchain.launches, convchain.bwd_launches, ssimfused.fwd_launches, ssimfused.bwd_launches)
+    return (convchain.launches, convchain.bwd_launches, ssimfused.fwd_launches, ssimfused.bwd_launches,
+            ssimfused.pool_fwd_launches, ssimfused.pool_bwd_launches, ssimfused.l0_fwd_launches,
+            ssimfused.l0_bwd_launches)
 
 
 def _reset_counts():
@@ -433,6 +539,20 @@ def _reset_counts():
 
     convchain.launches = convchain.bwd_launches = 0
     ssimfused.fwd_launches = ssimfused.bwd_launches = 0
+    ssimfused.pool_fwd_launches = ssimfused.pool_bwd_launches = 0
+    ssimfused.l0_fwd_launches = ssimfused.l0_bwd_launches = 0
+
+
+def _per_step(train=True, metrics=False):
+    """Launches of one step of the full-width ResUNet with the MS-SSIM loss:
+    36 convchain forwards, 72 backward launches (2 a layer), and the loss's
+    level 0, three pool levels and last level, forward (1 launch each) and
+    backward (2 each); the metrics add a single-scale SSIM forward.  A
+    validation step runs the forwards only."""
+    n_layers = sum(e + p for *_, e, p in layer_shapes())
+    fwd = (n_layers, 0, 1 + int(metrics), 0, 3, 0, 1, 0)
+    bwd = (0, 2 * n_layers, 0, 2, 0, 6, 0, 2)
+    return tuple(f + b * int(train) for f, b in zip(fwd, bwd))
 
 
 def _train_parts(seed):
@@ -448,7 +568,7 @@ def _train_parts(seed):
     def gen_pair(generator, batch, augment):
         return base(generator, batch)
 
-    return state, gen_pair, SSIMLoss(mix=0.8, ms=False), _build_paired_steps
+    return state, gen_pair, SSIMLoss(mix=0.8, ms=True), _build_paired_steps
 
 
 def _model(state, dtype, device):
@@ -462,7 +582,7 @@ def _model(state, dtype, device):
 def run_train(device, seed, card, root):
     """Phase 5a: the training step at full width in bf16 and f32 over
     PatchLoader batches, with the launches of each step checked; returns
-    the launches of each run as (fwd, bwd, ssim_fwd, ssim_bwd)."""
+    the launches of each run, in the order of COUNTERS."""
     from pssr2_tpu_torch import Poisson
     from pssr2_tpu_torch.data import ImageDataset
     from pssr2_tpu_torch.data.indexing import RandomIterIdx
@@ -473,8 +593,7 @@ def run_train(device, seed, card, root):
     step, _ = build(loss_fn, False, gen_pair)
     hr_res = LR_RES * SCALE
     dataset = ImageDataset(root, hr_res=hr_res, lr_scale=SCALE, val_split=1, crappifier=Poisson())
-    n_layers = sum(e + p for *_, e, p in layer_shapes())
-    per_step = (n_layers, 2 * n_layers, 1, 2)  # convchain fwd, bwd (2 launches a layer), SSIM fwd, bwd
+    per_step = _per_step()
     launches = {}
     for dtype in (torch.bfloat16, torch.float32):
         model = _model(state, dtype, device)
@@ -502,7 +621,7 @@ def run_train(device, seed, card, root):
         before = _counts()
         loss, (mse, ssim_val), _ = step(model, optimizer, hr_u8, None, generator, LR_RATE, n_valid, True)
         delta = tuple(a - b for a, b in zip(_counts(), before))
-        want = (per_step[0], per_step[1], 2, 2)
+        want = _per_step(metrics=True)
         values = [loss.item(), mse.item(), ssim_val.item()]
         if delta != want or not np.isfinite(values).all():
             raise RuntimeError(f"metrics step: launches {delta} (want {want}), loss, mse, ssim {values}")
@@ -514,7 +633,7 @@ def run_train(device, seed, card, root):
             f"(steps after the first: " + ", ".join(f"{1e3 * t:.2f}" for t in times[1:]) + f" ms; first "
             f"{1e3 * times[0]:.2f} ms); losses " + ", ".join(f"{v:.6f}" for v in losses)
             + f"; metrics step loss {values[0]:.6f} mse {values[1]:.6g} ssim {values[2]:.6f}; launches per step "
-            f"{per_step} (convchain fwd, bwd, SSIM fwd, bwd), whole run {launches[dtype]}"
+            f"{per_step} ({', '.join(COUNTERS)}), whole run {launches[dtype]}"
         )
     return launches
 
@@ -592,21 +711,117 @@ def compare_cpu_step(device, seed, root):
         raise RuntimeError(f"card train step differs from the CPU: {bad}")
 
 
-def kernels_line(fwd, bwd, ssim, serving, training):
+def run_train_paired(device, seed, card, root, tmp):
+    """Phase 6: ``train_paired`` at full width in bf16 compute, batch 16,
+    over the TILES 512^2 tiles (Poisson noise, augmentation and validation
+    on the device pipeline), with a ReduceLROnPlateau, weight checkpoints
+    and a state directory: TP_EPOCHS[0] epochs, then a second call with
+    TP_EPOCHS[1] that must resume from the saved state and run the rest.
+    Returns the launches of both calls, in the order of COUNTERS."""
+    from pssr2_tpu_torch import Poisson
+    from pssr2_tpu_torch.data import ImageDataset
+    from pssr2_tpu_torch.optim import AdamW, ReduceLROnPlateau
+    from pssr2_tpu_torch.train import train_paired
+    from pssr2_tpu_torch.util import SSIMLoss
+    from pssr2_tpu_torch.weights import params_from_jax, seeded_jax_params
+
+    state = params_from_jax(seeded_jax_params(HIDDEN, DEPTH, scale=SCALE, seed=seed))
+    hr_res = LR_RES * SCALE
+    dataset = ImageDataset(root, hr_res=hr_res, lr_scale=SCALE, crappifier=Poisson(), val_split=TP_VAL_SPLIT)
+    n_train, n_val = len(dataset) - len(dataset.val_idx), len(dataset.val_idx)
+    state_dir, ckpt_dir = Path(tmp, "train_state"), Path(tmp, "checkpoints")
+
+    class EpochClock(ReduceLROnPlateau):
+        """The scheduler train_paired steps at each epoch's end, stamping it."""
+
+        stamps = []
+
+        def step(self, metric):
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            super().step(metric)
+
+    steps = []  # a locals callback: (epoch, n_valid) of each training step
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    results, printed = [], []
+    for epochs in TP_EPOCHS:
+        model = _model(state, torch.bfloat16, device)
+        optim = AdamW(LR_RATE)
+        start = time.perf_counter()
+        EpochClock.stamps = [start]
+        printed.append(_capture_stdout(lambda: results.append(train_paired(
+            model, dataset, BATCH, SSIMLoss(mix=0.8, ms=True), optim, epochs, scheduler=EpochClock(optim),
+            checkpoint_dir=str(ckpt_dir), state_dir=str(state_dir), seed=seed,
+            callbacks=[lambda local: steps.append((local["epoch"], local["n_valid"]))],
+        ))))
+        epoch_s = np.diff(EpochClock.stamps)
+        print(
+            f"phase train_paired bf16 (epochs={epochs}) on {card}: {n_train} training and {n_val} validation "
+            f"patches an epoch at batch {BATCH}; epoch times " + ", ".join(f"{t:.3f}" for t in epoch_s)
+            + " s (training, validation, checkpoints; the first with cuDNN set-up) = "
+            + ", ".join(f"{n_train / t:.2f}" for t in epoch_s)
+            + f" training patches/s; call {time.perf_counter() - start:.2f} s with set-up; "
+            f"train losses {results[-1][0]}, val losses {results[-1][1]}"
+        )
+    counts = _counts()
+    resumed = f"Resuming training from epoch {TP_EPOCHS[0]}"
+    (_, val_1), (_, val_2) = results
+    finite = all(np.isfinite(v) for run in results for part in run for v in part)
+    n_batches, n_val_batches = -(-n_train // BATCH), -(-n_val // BATCH)
+    n_metrics = len({i for i in range(n_batches) if i % 50 == 0 or i == n_batches - 1})  # log_frequency 50
+    per_epoch = [_per_step(metrics=True)] * n_metrics + [_per_step()] * (n_batches - n_metrics) \
+        + [_per_step(train=False)] * n_val_batches
+    want = tuple(TP_EPOCHS[1] * sum(c) for c in zip(*per_epoch))
+    want_steps = [(e, min(BATCH, n_train - BATCH * i)) for e in range(TP_EPOCHS[1]) for i in range(n_batches)]
+    ckpts = sorted(p.name for p in ckpt_dir.iterdir())
+    states = sorted(p.name for p in state_dir.iterdir())
+    print(
+        f"  second call printed {resumed!r}: {any(resumed in line for line in printed[1])}; epochs run "
+        f"{len(val_1)} + {len(val_2)}; (epoch, n_valid) of the steps {steps}; state files {states}; "
+        f"weight checkpoints {ckpts}; launches {counts} (want {want}, {', '.join(COUNTERS)})"
+    )
+    if not any(resumed in line for line in printed[1]) or len(val_1) != TP_EPOCHS[0] \
+            or len(val_2) != TP_EPOCHS[1] - TP_EPOCHS[0] or not finite or counts != want or steps != want_steps \
+            or states != [f"epoch_{TP_EPOCHS[1] - 1}.pt", f"epoch_{TP_EPOCHS[1]}.pt"] or not ckpts:
+        raise RuntimeError(f"train_paired: results {results}, launches {counts} (want {want}), steps {steps}, "
+                           f"states {states}, checkpoints {ckpts}, resume printed: {printed[1][:3]}")
+    return counts
+
+
+def _capture_stdout(fn):
+    """Run ``fn`` with its standard output echoed and kept; -> the lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    text = buf.getvalue()
+    print("    | " + text.rstrip("\n").replace("\n", "\n    | "))
+    return text.splitlines()
+
+
+def kernels_line(fwd, bwd, ssim, serving, training, paired):
     """The per-kernel entries of the JSON line.  Launches are counted over
-    the main paths: serving and training for the convchain forward,
-    training for the others (both dtypes for the f32 SSIM)."""
+    the main paths: serving, the training steps and train_paired (bf16)
+    for the convchain forward; the training steps and train_paired for the
+    others (both dtypes for the f32 SSIM kernels)."""
+    def runs(i, dtype=None):
+        total = sum(c[i] for dt, c in training.items() if dtype in (None, dt))
+        return total + (paired[i] if dtype in (None, torch.bfloat16) else 0)
+
     entries = []
-    for name, totals, line, launches in (
-        ("convchain_fwd", fwd, 185, {dt: serving[dt] + training[dt][0] for dt in fwd}),
-        ("convchain_bwd", bwd, 277, {dt: training[dt][1] for dt in bwd}),
-    ):
+    for name, totals, line, i in (("convchain_fwd", fwd, 185, 0), ("convchain_bwd", bwd, 277, 1)):
         for dtype, tot in totals.items():
-            entries.append((f"{name}[{str(dtype)[6:]}]", "convchain" if name.endswith("fwd") else "convchain_bwd",
-                            f"convchain.py:{line}", launches[dtype],
+            launches = runs(i, dtype) + (serving[dtype] if i == 0 else 0)
+            entries.append((f"{name}[{str(dtype)[6:]}]", "convchain" if i == 0 else "convchain_bwd",
+                            f"convchain.py:{line}", launches,
                             dict(tot, bound_by=max(tot["bound_by"], key=tot["bound_by"].get))))
-    for name, line, i in (("ssim_fwd", 239, 2), ("ssim_bwd", 254, 3)):
-        entries.append((name, "ssimfused", f"ssimfused.py:{line}", sum(c[i] for c in training.values()), ssim[name]))
+    for name, line in (("ssim_fwd", 239), ("ssim_bwd", 254), ("ssim_pool_fwd", 292), ("ssim_pool_bwd", 314),
+                       ("ssim_l0_fwd", 354), ("ssim_l0_bwd", 380)):
+        entries.append((name, "ssimfused", f"ssimfused.py:{line}", runs(COUNTERS.index(name)), ssim[name]))
     kernels = []
     for name, source, replaces, launches, tot in entries:
         if launches == 0:
@@ -667,8 +882,9 @@ def main():
         serving = run_slice(device, args.seed, card, root, tmp)
         training = run_train(device, args.seed, card, root)
         compare_cpu_step(device, args.seed, root)
+        paired = run_train_paired(device, args.seed, card, root, tmp)
 
-    print(json.dumps({"kernels": kernels_line(fwd, bwd, ssim, serving, training)}))
+    print(json.dumps({"kernels": kernels_line(fwd, bwd, ssim, serving, training, paired)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,19 +1,27 @@
-"""Single-scale SSIM on NCHW batches, numerically matched to
-``pytorch_msssim`` (counterpart: pssr2_tpu/ops/ssim.py:31-190).
+"""SSIM and MS-SSIM on NCHW batches, numerically matched to
+``pytorch_msssim`` (counterpart: pssr2_tpu/ops/ssim.py).
 
-Separable 11-tap Gaussian window, VALID blur, K = (0.01, 0.03).  The blur is
-two f32 band-matrix products and ``_moments_to_ssim`` carries its analytic
-VJP; :func:`_ssim_parts` goes through ``ops/ssimfused.ssim_parts``, which
-launches the fused kernel for a CUDA tensor and takes this band-matrix
-form for a CPU tensor.  Everything is true f32: TF32 is off
-for the whole package, and the variance terms ``E[x^2] - E[x]^2`` cancel
-badly in lower precision.  MS-SSIM is not ported yet.
+Separable Gaussian window (11 taps by default), VALID blur, K = (0.01,
+0.03); MS-SSIM over 5 levels with weights [0.0448, 0.2856, 0.3001, 0.2363,
+0.1333], a 2x2 average pool between levels (pad = dim % 2) and relu on the
+cs terms.  The blur is two band-matrix products and ``_moments_to_ssim``
+carries its analytic VJP.  :func:`_ssim_parts` dispatches as the JAX
+package does: 4-D maps that the kernels take (``ssimfused.auto_ok``: f32,
+odd window, image at least the window) go through
+``ops/ssimfused.ssim_parts``, which launches the fused kernel for a CUDA
+tensor and takes this band-matrix form for a CPU tensor; any other input
+(bf16 maps, say) takes the band-matrix form in its own dtype on any
+device.  f32 is true f32: TF32 is off for the whole package, and the
+variance terms ``E[x^2] - E[x]^2`` cancel badly in lower precision.
 """
 
 import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+_MS_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
 
 @functools.lru_cache(maxsize=16)
@@ -52,6 +60,13 @@ def _blur(x: torch.Tensor, win_size: int, win_sigma: float) -> torch.Tensor:
     gh = _band_on(h, win_size, win_sigma, x.device).to(x.dtype)
     gw = _band_on(w, win_size, win_sigma, x.device).to(x.dtype)
     return torch.matmul(torch.matmul(gh.T, x), gw)
+
+
+def _blur_same(x: torch.Tensor, win_size: int, win_sigma: float) -> torch.Tensor:
+    """Same-size Gaussian blur over the last two dims: zero padding of
+    (win_size - 1) / 2, then the VALID blur."""
+    pad = (win_size - 1) // 2
+    return _blur(F.pad(x, (pad, pad, pad, pad)), win_size, win_sigma)
 
 
 def _moments_to_ssim_maps(mu1, mu2, xx_b, yy_b, xy_b, c1, c2):
@@ -113,12 +128,19 @@ def _moments_to_ssim(mu1, mu2, xx_b, yy_b, xy_b, c1, c2):
 
 
 def _ssim_parts(x, y, data_range, win_size, win_sigma, k):
-    from .ssimfused import ssim_parts
+    from . import ssimfused
 
     k1, k2 = k
     c1 = (k1 * data_range) ** 2
     c2 = (k2 * data_range) ** 2
-    return ssim_parts(x, y, float(c1), float(c2), win_size, win_sigma)
+    if x.dim() == 4 and ssimfused.auto_ok(x, win_size):
+        return ssimfused.ssim_parts(x, y, float(c1), float(c2), win_size, win_sigma)
+
+    # one batched blur for all five moment maps, in the maps' dtype
+    stacked = torch.cat([x, y, x * x, y * y, x * y], dim=0)
+    blurred = _blur(stacked, win_size, win_sigma)
+    mu1, mu2, xx_b, yy_b, xy_b = torch.chunk(blurred, 5, dim=0)
+    return _moments_to_ssim(mu1, mu2, xx_b, yy_b, xy_b, float(c1), float(c2))
 
 
 def ssim(
@@ -136,3 +158,72 @@ def ssim(
     if nonnegative:
         s = torch.relu(s)
     return s.mean() if size_average else s.mean(1)
+
+
+def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool, stride 2, with zero pad = dim % 2 (torch
+    semantics: padded zeros count in the divisor, and for odd dims the
+    trailing pad is dropped by the output-size floor, so only the front
+    pad survives)."""
+    x = F.pad(x, (x.shape[-1] % 2, 0, x.shape[-2] % 2, 0))
+    b, c, h, w = x.shape
+    return x.reshape(b, c, h // 2, 2, w // 2, 2).sum(dim=(3, 5)) / 4.0
+
+
+def ms_ssim(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    data_range: float = 255.0,
+    win_size: int = 11,
+    win_sigma: float = 1.5,
+    weights=None,
+    k=(0.01, 0.03),
+    size_average: bool = True,
+):
+    """Multi-scale SSIM over NCHW batches (pytorch_msssim ``ms_ssim`` parity).
+
+    The smallest spatial dim must be > (win_size - 1) * 2**(levels-1).
+    Where the kernels take the maps and H and W divide by 2**(levels-1),
+    each level but the last runs ``ssimfused.fused_ssim_parts_pool`` (the
+    pool inside the kernel); otherwise each level is ``_ssim_parts`` and
+    ``_avg_pool2``.
+    """
+    from . import ssimfused
+
+    weights = torch.as_tensor(_MS_WEIGHTS if weights is None else weights, dtype=x.dtype, device=x.device)
+    levels = weights.shape[0]
+    smaller = min(x.shape[-2], x.shape[-1])
+    if smaller <= (win_size - 1) * (2 ** (levels - 1)):
+        raise ValueError(
+            f"Image size {tuple(x.shape[-2:])} too small for {levels}-level MS-SSIM "
+            f"with win_size={win_size}; needs > {(win_size - 1) * 2 ** (levels - 1)}."
+        )
+    fused_chain = (
+        x.dim() == 4
+        and ssimfused.auto_ok(x, win_size)
+        and x.shape[-2] % (1 << (levels - 1)) == 0
+        and x.shape[-1] % (1 << (levels - 1)) == 0
+    )
+
+    k1, k2 = k
+    c1 = (k1 * data_range) ** 2
+    c2 = (k2 * data_range) ** 2
+    mcs = []
+    ssim_per_channel = None
+    for i in range(levels):
+        if fused_chain and i < levels - 1:
+            ssim_per_channel, cs, x, y = ssimfused.fused_ssim_parts_pool(
+                x, y, float(c1), float(c2), win_size, win_sigma
+            )
+            mcs.append(torch.relu(cs))
+            continue
+        ssim_per_channel, cs = _ssim_parts(x, y, data_range, win_size, win_sigma, k)
+        if i < levels - 1:
+            mcs.append(torch.relu(cs))
+            x = _avg_pool2(x)
+            y = _avg_pool2(y)
+
+    ssim_per_channel = torch.relu(ssim_per_channel)
+    stacked = torch.stack(mcs + [ssim_per_channel], dim=0)  # (levels, B, C)
+    val = torch.prod(stacked ** weights.view(-1, 1, 1), dim=0)
+    return val.mean() if size_average else val.mean(1)

@@ -1,5 +1,5 @@
-"""Utilities: the losses, prediction normalization, the pixel metric and
-the callback protocol (counterpart: pssr2_tpu/util.py:19-180, 301-411;
+"""Utilities: the losses, prediction normalization, the pixel and PSNR
+metrics and the callback protocol (counterpart: pssr2_tpu/util.py:19-180, 301-411;
 reference: pssr/util.py)."""
 
 import inspect
@@ -7,10 +7,10 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from .ops import ssimfused
 from .ops.resize import resize_bilinear_np
-from .ops.ssim import _blur, ssim
+from .ops.ssim import _MS_WEIGHTS, _blur_same, ms_ssim, ssim
 
 
 class MSELoss:
@@ -26,9 +26,9 @@ class MSELoss:
 class SSIMLoss:
     def __init__(self, channels: int = 1, mix: float = 0.8, win_size: int = 11, win_sigma: float = 1.5,
                  ms: bool = True, kwargs=None, dtype=None):
-        """SSIM loss with Mix as detailed in Zhao et al., 2018
-        (reference: pssr/util.py:10-52): ``mix * (1 - SSIM) + (1 - mix) *
-        windowed L1``.
+        """SSIM and MS-SSIM loss with Mix as detailed in Zhao et al., 2018
+        (reference: pssr/util.py:10-52): ``mix * (1 - (MS-)SSIM) + (1 - mix)
+        * windowed L1``.
 
         Args:
             channels (int) : Number of channels in image. Default is 1.
@@ -40,20 +40,18 @@ class SSIMLoss:
 
             win_sigma (float) : Sigma of the Gaussian window. Default is 1.5.
 
-            ms (bool) : Use MS-SSIM over basic SSIM.  MS-SSIM is not ported
-                yet: ``ms=True`` raises until the multi-scale kernels
-                (level 0 and pool) are; pass ``ms=False``.
+            ms (bool) : Use MS-SSIM over basic SSIM. Default is True.
 
             kwargs : Extra kwargs forwarded to the ssim implementation.
 
-            dtype : Optional compute dtype for the loss (None keeps float32;
-                the SSIM kernel takes float32 only).
+            dtype : Optional compute dtype for the loss (e.g.
+                ``torch.bfloat16``).  The default (None) keeps float32,
+                matching pytorch_msssim numerics; other dtypes take the
+                band-matrix path, not the kernels.  The variance terms
+                (``E[x^2] - E[x]^2``) cancel badly in 8-bit mantissas, and
+                a canonical training under a bf16 loss diverged in the JAX
+                package: not for training.
         """
-        if ms:
-            raise NotImplementedError(
-                "SSIMLoss(ms=True): MS-SSIM is not ported yet; it comes with the level-0 and "
-                "pool SSIM kernels of the next training slice. Pass ms=False."
-            )
         self.channels = channels
         self.win_size = win_size
         self.win_sigma = win_sigma
@@ -63,7 +61,8 @@ class SSIMLoss:
         self.dtype = dtype
 
     def _ssim_val(self, input, target, size_average):
-        return ssim(
+        fn = ms_ssim if self.ms else ssim
+        return fn(
             input,
             target,
             data_range=1,
@@ -76,9 +75,7 @@ class SSIMLoss:
     def _l1_windowed(self, input, target, per_sample):
         # Gaussian-windowed L1: the window over the unreduced L1 map with
         # zero padding, per channel (reference util.py:48-51)
-        l1 = torch.abs(input - target)
-        pad = (self.win_size - 1) // 2
-        out = _blur(F.pad(l1, (pad, pad, pad, pad)), self.win_size, self.win_sigma)
+        out = _blur_same(torch.abs(input - target), self.win_size, self.win_sigma)
         if per_sample:
             return out.mean(dim=tuple(range(1, out.dim())))
         return out.mean()
@@ -88,13 +85,66 @@ class SSIMLoss:
             return input.to(self.dtype), target.to(self.dtype)
         return input, target
 
+    def _fused_mix_loss(self, input, target, divisor, size_average):
+        """The whole mixed loss through the fused kernel chain (level 0
+        divides, computes SSIM, the windowed L1 and the pool in one pass,
+        ``ops/ssimfused.fused_level0_parts``; the middle levels pool in
+        their kernel; the last level is single-scale), or None where the
+        configuration falls outside the kernels' envelope."""
+        if not self.ms or self.dtype is not None:
+            return None
+        if input.dim() != 4 or input.dtype != torch.float32 or input.shape != target.shape:
+            return None
+        if set(self.kwargs) - {"weights", "k"}:
+            return None
+        weights = np.asarray(self.kwargs.get("weights", _MS_WEIGHTS), np.float32)
+        levels = len(weights)
+        k1, k2 = self.kwargs.get("k", (0.01, 0.03))
+        c1, c2 = float(k1) ** 2, float(k2) ** 2  # data_range == 1 (as _ssim_val)
+        h, w = input.shape[-2:]
+        if h % (1 << (levels - 1)) or w % (1 << (levels - 1)):
+            return None  # odd pool dims somewhere in the chain (torch pads)
+        if min(h, w) <= (self.win_size - 1) * 2 ** (levels - 1):
+            return None
+        if not ssimfused.auto_ok(input, self.win_size):
+            return None
+
+        s, cs, l1m, x, y = ssimfused.fused_level0_parts(
+            input, target, c1, c2, self.win_size, self.win_sigma, divisor
+        )
+        mcs = [torch.relu(cs)]
+        for i in range(1, levels):
+            if i < levels - 1:
+                s, cs, x, y = ssimfused.fused_ssim_parts_pool(x, y, c1, c2, self.win_size, self.win_sigma)
+                mcs.append(torch.relu(cs))
+            else:
+                s, cs = ssimfused.fused_ssim_parts(x, y, c1, c2, self.win_size, self.win_sigma)
+        stacked = torch.stack(mcs + [torch.relu(s)], dim=0)  # (levels, B, C)
+        wts = torch.from_numpy(weights).to(stacked.device).view(-1, 1, 1)
+        val = torch.prod(stacked**wts, dim=0)
+        msv = val.mean() if size_average else val.mean(1)
+        loss = 1 - msv
+        if self.mix < 1:
+            l1 = l1m.mean() if size_average else l1m.mean(1)
+            loss = self.mix * loss + (1 - self.mix) * l1
+        return loss
+
     def scaled(self, input, target, divisor):
-        """``loss(input / divisor, target / divisor)``."""
+        """``loss(input / divisor, target / divisor)``, with the exact f32
+        divide folded into the level-0 kernel where the fused chain runs,
+        so the train loop's /IMAGE_RANGE never forms divided
+        full-resolution tensors."""
         input, target = self._cast(input, target)
+        fused = self._fused_mix_loss(input, target, float(divisor), size_average=True)
+        if fused is not None:
+            return fused
         return self(input / divisor, target / divisor)
 
     def __call__(self, input, target):
         input, target = self._cast(input, target)
+        fused = self._fused_mix_loss(input, target, 1.0, size_average=True)
+        if fused is not None:
+            return fused
         x = 1 - self._ssim_val(input, target, size_average=True)
         if self.mix < 1:
             x = self.mix * x + (1 - self.mix) * self._l1_windowed(input, target, per_sample=False)
@@ -103,6 +153,9 @@ class SSIMLoss:
     def per_sample(self, input, target):
         """(B,) per-sample losses, for exact masked reduction over padded batches."""
         input, target = self._cast(input, target)
+        fused = self._fused_mix_loss(input, target, 1.0, size_average=False)
+        if fused is not None:
+            return fused
         x = 1 - self._ssim_val(input, target, size_average=False)
         if self.mix < 1:
             x = self.mix * x + (1 - self.mix) * self._l1_windowed(input, target, per_sample=True)
@@ -195,6 +248,10 @@ def pixel_metric(mse, image_range: int = 255):
         image_range (int) : Value range of image. Default is 255.
     """
     return math.sqrt(mse) * image_range
+
+
+def _psnr_metric(mse):
+    return 20 * np.log10(1 / np.sqrt(mse))
 
 
 def _force_list(item):

@@ -19,6 +19,11 @@ from pssr2_tpu_torch.ops import convchain, ssimfused
 
 pytestmark = pytest.mark.cuda
 
+# bf16 SSIM (band path) against the f32 kernel on the same maps: the five
+# moments round to 8 bits before E[x^2] - E[x]^2 (a bf16 ulp at 1 is
+# 0.0039); on the CPU the mean moved by 7e-4 at these maps.
+BF16_SSIM_TOL = 0.02
+
 # (Cin, Cout, H, W): the ResUNet's entry layer, ragged tiles and channel
 # counts the kernel masks, and a deep-stage shape
 SHAPES = [(1, 64, 16, 16), (3, 8, 10, 13), (16, 70, 9, 17), (96, 64, 24, 24), (512, 1024, 8, 8)]
@@ -119,42 +124,188 @@ def test_convchain_autograd_goes_through_kernels(device):
         assert err <= bound, f"{name}: max abs error {err} > {bound}"
 
 
-def _ssim_inputs(device, shape, seed=0):
+def _ssim_inputs(device, shape, seed=0, scale=1.0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     y = torch.rand(shape, generator=g)
     x = (y + 0.1 * torch.randn(shape, generator=g)).clamp(-0.2, 1.2)
-    return x.to(device), y.to(device)
+    return (scale * x).to(device), (scale * y).to(device)
 
 
-@pytest.mark.parametrize("shape", [(2, 1, 64, 64), (3, 2, 45, 77), (1, 1, 11, 11), (2, 1, 512, 512)],
-                         ids=lambda s: "x".join(map(str, s)))
-def test_ssim_fwd_bwd_match_plain(device, shape):
-    """The fused SSIM forward and backward against reference_parts (the
-    band-matrix form with autograd), within ssimfused.TOLERANCE."""
+def _close(got, ref, key):
+    """max |got - ref| within ssimfused.TOLERANCE[key]: absolute for the
+    means, relative to max |ref| for the maps and gradients."""
+    err = (got - ref).abs().max().item()
+    bound = ssimfused.TOLERANCE[key] * (1.0 if key in ("s", "cs", "l1") else ref.abs().max().item())
+    assert err <= bound, f"{key}: max abs error {err} > {bound}"
+
+
+def _counts():
+    return tuple(getattr(ssimfused, f"{k}_launches") for k in ("fwd", "bwd", "pool_fwd", "pool_bwd", "l0_fwd", "l0_bwd"))
+
+
+def _delta(before):
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
+@pytest.mark.parametrize("win", [7, 11, 15])
+@pytest.mark.parametrize("shape", [(2, 1, 64, 64), (3, 2, 45, 77), (1, 1, 0, 0), (2, 1, 512, 512)],
+                         ids=lambda s: "x".join(map(str, s)) if s[2] else "window")
+def test_ssim_fwd_bwd_match_plain(device, shape, win):
+    """The fused SSIM forward and backward (row 5) against reference_parts
+    (the band-matrix form with autograd), within ssimfused.TOLERANCE, at
+    the loss's window and two others; "window" is an image of exactly the
+    window's size."""
+    if not shape[2]:
+        shape = (1, 1, win, win)
     x, y = _ssim_inputs(device, shape)
     c1, c2 = 0.01**2, 0.03**2
     xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
-    f0, b0 = ssimfused.fwd_launches, ssimfused.bwd_launches
-    s, cs = ssimfused.fused_ssim_parts(xk, yk, c1, c2, 11, 1.5)
+    before = _counts()
+    s, cs = ssimfused.fused_ssim_parts(xk, yk, c1, c2, win, 1.5)
     (s.sum() + 0.5 * cs.sum()).backward()
-    assert (ssimfused.fwd_launches, ssimfused.bwd_launches) == (f0 + 1, b0 + 2)
+    assert _delta(before) == (1, 2, 0, 0, 0, 0)
     xr, yr = x.clone().requires_grad_(), y.clone().requires_grad_()
-    s_ref, cs_ref = ssimfused.reference_parts(xr, yr, c1, c2, 11, 1.5)
+    s_ref, cs_ref = ssimfused.reference_parts(xr, yr, c1, c2, win, 1.5)
     (s_ref.sum() + 0.5 * cs_ref.sum()).backward()
     torch.cuda.synchronize()
     assert s.shape == cs.shape == shape[:2]
-    assert (s - s_ref).abs().max().item() <= ssimfused.TOLERANCE["s"]
-    assert (cs - cs_ref).abs().max().item() <= ssimfused.TOLERANCE["cs"]
-    for got, ref in ((xk.grad, xr.grad), (yk.grad, yr.grad)):
-        err = (got - ref).abs().max().item()
-        assert err <= ssimfused.TOLERANCE["g"] * ref.abs().max().item(), err
+    _close(s, s_ref, "s")
+    _close(cs, cs_ref, "cs")
+    _close(xk.grad, xr.grad, "g")
+    _close(yk.grad, yr.grad, "g")
+
+
+@pytest.mark.parametrize("win", [7, 11])
+@pytest.mark.parametrize("shape", [(2, 1, 64, 64), (3, 2, 46, 78), (16, 1, 256, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssim_pool_matches_plain(device, shape, win):
+    """Row 4, a middle MS-SSIM level: (ssim, cs) means and the pooled maps
+    against reference_parts_pool, and the gradients with cotangents on all
+    four outputs."""
+    x, y = _ssim_inputs(device, shape)
+    c1, c2 = 0.01**2, 0.03**2
+    g = torch.Generator(device="cpu").manual_seed(2)
+    wp = torch.randn((2, *shape[:2], shape[2] // 2, shape[3] // 2), generator=g).to(device)
+    outs = []
+    before = _counts()
+    for fn in (ssimfused.fused_ssim_parts_pool, ssimfused.reference_parts_pool):
+        xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
+        s, cs, xp, yp = fn(xk, yk, c1, c2, win, 1.5)
+        (s.sum() + 0.5 * cs.sum() + (xp * wp[0]).sum() + (yp * wp[1]).sum()).backward()
+        outs.append((s, cs, xp, yp, xk.grad, yk.grad))
+    assert _delta(before) == (0, 0, 1, 2, 0, 0)
+    torch.cuda.synchronize()
+    got, ref = outs
+    assert got[2].shape == (*shape[:2], shape[2] // 2, shape[3] // 2)
+    for key, a, b in zip(("s", "cs", "pool", "pool", "g", "g"), got, ref):
+        _close(a, b, key)
+
+
+@pytest.mark.parametrize("divisor", [1.0, 255.0])
+@pytest.mark.parametrize("shape", [(2, 1, 64, 64), (3, 1, 46, 78), (16, 1, 512, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssim_level0_matches_plain(device, shape, divisor):
+    """Row 3, MS-SSIM level 0 of the mixed loss: the divide, (ssim, cs),
+    the windowed-L1 mean and the pooled maps against reference_level0, and
+    the gradients with cotangents on all five outputs."""
+    x, y = _ssim_inputs(device, shape, scale=divisor)
+    c1, c2 = 0.01**2, 0.03**2
+    g = torch.Generator(device="cpu").manual_seed(3)
+    wp = torch.randn((2, *shape[:2], shape[2] // 2, shape[3] // 2), generator=g).to(device)
+    wl = torch.randn(shape[:2], generator=g).to(device)
+    outs = []
+    before = _counts()
+    for fn in (ssimfused.fused_level0_parts, ssimfused.reference_level0):
+        xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
+        s, cs, l1, xp, yp = fn(xk, yk, c1, c2, 11, 1.5, divisor)
+        (s.sum() + 0.5 * cs.sum() + (l1 * wl).sum() + (xp * wp[0]).sum() + (yp * wp[1]).sum()).backward()
+        outs.append((s, cs, l1, xp, yp, xk.grad, yk.grad))
+    assert _delta(before) == (0, 0, 0, 0, 1, 2)
+    torch.cuda.synchronize()
+    got, ref = outs
+    for key, a, b in zip(("s", "cs", "l1", "pool", "pool", "g", "g"), got, ref):
+        _close(a, b, key)
+
+
+def test_ms_ssim_loss_goes_through_the_kernels(device):
+    """SSIMLoss(mix=0.8, ms=True).scaled on the training's shape family
+    launches level 0, three pool levels and the last level, forward and
+    backward, and matches the same loss on the CPU (plain versions)."""
+    from pssr2_tpu_torch.util import SSIMLoss
+
+    x, y = _ssim_inputs(device, (4, 1, 256, 256), scale=255.0)
+    xk = x.clone().requires_grad_()
+    before = _counts()
+    loss = SSIMLoss(mix=0.8, ms=True).scaled(xk, y, 255)
+    loss.backward()
+    assert _delta(before) == (1, 2, 3, 6, 1, 2)
+    xc = x.cpu().requires_grad_()
+    ref = SSIMLoss(mix=0.8, ms=True).scaled(xc, y.cpu(), 255)
+    ref.backward()
+    assert abs(loss.item() - ref.item()) <= 1e-5
+    err = (xk.grad.cpu() - xc.grad).abs().max().item()
+    assert err <= ssimfused.TOLERANCE["g"] * xc.grad.abs().max().item(), err
+
+
+def test_ssim_gate_sends_bf16_down_the_band_path(device):
+    """bf16 maps take the band-matrix path on the card (no kernel launch),
+    and agree with the f32 kernel within bf16's rounding of the moments."""
+    from pssr2_tpu_torch.ops.ssim import ssim
+    from pssr2_tpu_torch.util import SSIMLoss
+
+    x, y = _ssim_inputs(device, (2, 1, 96, 96))
+    before = _counts()
+    s16 = ssim(x.bfloat16(), y.bfloat16(), data_range=1.0)
+    loss16 = SSIMLoss(ms=False, dtype=torch.bfloat16)(x, y)
+    assert _delta(before) == (0, 0, 0, 0, 0, 0)
+    s32 = ssim(x, y, data_range=1.0)
+    assert _delta(before) == (1, 0, 0, 0, 0, 0)
+    assert s16.dtype == torch.bfloat16 and torch.isfinite(loss16)
+    assert abs(s16.float().item() - s32.item()) <= BF16_SSIM_TOL
+
+
+def test_ssim_loss_window_7_runs_the_kernel(device):
+    from pssr2_tpu_torch.util import SSIMLoss
+
+    x, y = _ssim_inputs(device, (2, 1, 64, 64))
+    before = _counts()
+    loss = SSIMLoss(ms=False, win_size=7)(x.requires_grad_(), y)
+    loss.backward()
+    assert _delta(before) == (1, 2, 0, 0, 0, 0)
+    ref = SSIMLoss(ms=False, win_size=7)(x.detach().cpu(), y.cpu())
+    assert abs(loss.item() - ref.item()) <= 1e-5
 
 
 def test_ssim_refuses_what_it_does_not_take(device):
-    x, y = _ssim_inputs(device, (1, 1, 32, 32))
+    """The kernels raise on what they do not take (the gate sends other
+    dtypes to the band path before they get there): float64 maps, a window
+    above MAX_WIN (ValueError naming it), mismatched shapes, odd dims for
+    the pooling kernels."""
+    x, y = _ssim_inputs(device, (1, 1, 40, 40))
     with pytest.raises(TypeError):
         ssimfused.fused_ssim_parts(x.double(), y.double(), 1e-4, 9e-4, 11, 1.5)
-    with pytest.raises(ValueError):
-        ssimfused.fused_ssim_parts(x, y, 1e-4, 9e-4, 7, 1.5)
+    with pytest.raises(ValueError, match=f"MAX_WIN={ssimfused.MAX_WIN}"):
+        ssimfused.fused_ssim_parts(x, y, 1e-4, 9e-4, ssimfused.MAX_WIN + 2, 1.5)
     with pytest.raises(ValueError):
         ssimfused.fused_ssim_parts(x, y[..., :16], 1e-4, 9e-4, 11, 1.5)
+    with pytest.raises(ValueError):
+        ssimfused.fused_ssim_parts_pool(x[..., 1:], y[..., 1:], 1e-4, 9e-4, 11, 1.5)
+    with pytest.raises(ValueError):
+        ssimfused.fused_level0_parts(x[..., 1:, :], y[..., 1:, :], 1e-4, 9e-4, 11, 1.5, 255.0)
+
+
+def test_ssim_largest_window_matches_plain(device):
+    """The largest window the kernels take (dynamic shared memory above 48 KB)."""
+    x, y = _ssim_inputs(device, (2, 1, 80, 96))
+    win = ssimfused.MAX_WIN
+    xk, yk = x.clone().requires_grad_(), y.clone().requires_grad_()
+    s, cs = ssimfused.fused_ssim_parts(xk, yk, 1e-4, 9e-4, win, 4.0)
+    (s.sum() - cs.sum()).backward()
+    xr, yr = x.clone().requires_grad_(), y.clone().requires_grad_()
+    s_ref, cs_ref = ssimfused.reference_parts(xr, yr, 1e-4, 9e-4, win, 4.0)
+    (s_ref.sum() - cs_ref.sum()).backward()
+    torch.cuda.synchronize()
+    _close(s, s_ref, "s")
+    _close(cs, cs_ref, "cs")
+    _close(xk.grad, xr.grad, "g")
+    _close(yk.grad, yr.grad, "g")

@@ -7,7 +7,8 @@ ops/ssimfused.py, util.py) against the JAX package.
 - ``SSIMLoss(mix=0.8, ms=False)``: ``__call__``, ``per_sample`` and
   ``scaled(., ., 255)`` against the JAX class, with the JAX SSIM in its
   CPU path (XLA band matrices) and in its TPU path (the Pallas kernel,
-  interpreted), values and input gradients.
+  interpreted), values and input gradients; and ``SSIMLoss()``, whose
+  default is MS-SSIM.
 
 Tolerances: both sides compute in f32 with the same formulation; they
 differ in the order of the blur sums and of the means.  The variance
@@ -29,6 +30,8 @@ from pssr2_tpu_torch.util import MSELoss, SSIMLoss
 torch.set_num_threads(2)
 
 MEAN_TOL, GRAD_TOL = 2e-6, 1e-4
+# MS-SSIM's value: a product of five levels' means (measured within 2.6e-6)
+MS_VALUE_TOL = 1e-5
 
 
 @pytest.fixture
@@ -111,9 +114,20 @@ def test_ssim_loss_matches_jax(mode, how):
     _grad_close(xt.grad.numpy(), g_j)
 
 
-def test_ms_ssim_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ms=False"):
-        SSIMLoss()
+def test_default_ssim_loss_is_ms_ssim_and_matches_jax():
+    """``SSIMLoss()`` defaults to ``ms=True`` on both sides: value and
+    input gradient against the JAX class (JAX's CPU path), within
+    MS_VALUE_TOL and GRAD_TOL (tests/test_torch_msssim.py covers the rest
+    of MS-SSIM)."""
+    x, y = _pair((2, 1, 192, 192), 5)
+    loss = SSIMLoss()
+    assert loss.ms and JaxSSIMLoss().ms
+    val_j, g_j = jax.value_and_grad(lambda a: JaxSSIMLoss()(a, jnp.asarray(y)))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    val = loss(xt, torch.from_numpy(y))
+    val.backward()
+    assert abs(val.item() - float(val_j)) <= MS_VALUE_TOL
+    _grad_close(xt.grad.numpy(), g_j)
 
 
 def test_mse_loss_matches_jax():
