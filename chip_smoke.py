@@ -16,20 +16,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    shapes of one MS-SSIM loss at batch 16 (level 0 at 512^2 with the divide
    by 255, the pool levels at 256^2, 128^2 and 64^2, the last level at
    32^2), the single-scale SSIM at 512^2 and at windows 7 and 15, and one
-   bf16 ssim call, which takes the band-matrix path;
+   bf16 ssim call, which takes the band-matrix path; the convchain shapes
+   include the RDResUNet decoder's; the RDNet block tail forward and
+   backward at the 21 dense blocks' shapes of the full-width RDResUNet x4
+   at batch 16, in f32 and bf16;
 4. serving: ``predict_images`` with the full-width ``ResUNet()`` x4 on 32
-   synthetic 128^2 -> 512^2 tiles in f32 and bf16, with the kernels'
-   launch counts read around each run, and two f32 tiles held against the
-   same model on the CPU (plain versions);
+   synthetic 128^2 -> 512^2 tiles in f32 and bf16, twice (the first call
+   with cuDNN set-up, the second warm), with the kernels' launch counts
+   read around each call, and two f32 tiles held against the
+   same model on the CPU (plain versions); then the same with the
+   full-width ``RDResUNet()`` x4, one f32 tile held against the CPU;
 5. training: the full-width ``ResUNet()`` in train mode, a few steps in
    bf16 and in f32 on 512^2 uint8 patches from ``PatchLoader`` at batch 16
    (device augment, downscale, Poisson noise; ``SSIMLoss(mix=0.8,
    ms=True)``; AdamW), with the launch counts checked per step, then one
-   f32 step on 2 samples held against the same step on the CPU;
-6. train_paired: the full-width model in bf16 compute, batch 16, over the
-   32 tiles with validation, a ReduceLROnPlateau, weight checkpoints and a
-   state directory, for 2 epochs, then resumed by a second call to 3, with
-   the epoch times and every kernel's launches checked.
+   f32 step on 2 samples held against the same step on the CPU; then the
+   same steps with the full-width ``RDResUNet()``;
+6. train_paired: the full-width ResUNet in bf16 compute, batch 16, over
+   the 32 tiles with validation, a ReduceLROnPlateau, weight checkpoints
+   and a state directory, for 2 epochs, then resumed by a second call to
+   3, with the epoch times and every kernel's launches checked; then the
+   full-width RDResUNet in bf16 for 2 epochs in one call, the same way.
 
 The last two lines are a JSON line of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  This script imports nothing of
@@ -37,7 +44,7 @@ JAX and nothing of the JAX package.
 """
 
 import argparse
-import copy
+import functools
 import json
 import re
 import subprocess
@@ -57,10 +64,12 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 HIDDEN, DEPTH, SCALE, LR_RES, BATCH, TILES = [64, 128, 256, 512, 1024], 3, 4, 128, 16, 32
-SOURCES = ("convchain", "convchain_bwd", "ssimfused")
+SOURCES = ("convchain", "convchain_bwd", "ssimfused", "rdtail")
 # The f32 card output against the same model on the CPU, on the [0, 255]
-# scale: only the order of f32 summation differs, through 45 layers.
+# scale: only the order of f32 summation differs, through 45 layers
+# (ResUNet) or 21 dense blocks and 16 decoder layers (RDResUNet).
 CPU_TOL = 0.05
+RD_EPS = 1e-6  # the RDNet LayerNorms' epsilon
 # Training: epochs over the TILES patches (2 steps each), learning rate, and
 # the SSIM kernels' shape (the loss's images at batch 16).
 TRAIN_EPOCHS, LR_RATE = 2, 1e-3
@@ -88,6 +97,9 @@ BF16_SSIM_TOL = 0.02
 # and the share of the TILES held out for validation (8 of 32: one partial
 # validation batch, and 24 training patches, 2 steps an epoch)
 TP_EPOCHS, TP_VAL_SPLIT = (2, 3), 0.25
+# and RDResUNet's: one call of 2 epochs (train_paired writes a weight
+# checkpoint after each epoch but the last)
+RD_TP_EPOCHS = (2,)
 STEP_TOL = {"loss": 1e-4, "param": 2.001 * LR_RATE, "stat": 1e-3}
 
 
@@ -107,6 +119,55 @@ def layer_shapes():
                 e, p = out.get(key, (0, 0))
                 out[key] = (e + count[0], p + count[1])
     return [(*k, *v) for k, v in out.items()]
+
+
+def rd_shapes():
+    """The full-width RDResUNet x4 at batch BATCH: [(cin, cout, res, n_entry,
+    n_prologue)] of its decoder's ResBlock 3x3 layers in one forward, as
+    :func:`layer_shapes`, and [(m, c, inter, g)] of its dense blocks' tails
+    (rows, input, hidden and output channels), one per block."""
+    from pssr2_tpu_torch.models import RDResUNet
+
+    model = RDResUNet(device="meta")
+    res, tails = LR_RES // model.ratios[-1], []
+    for i, stage in enumerate(model.encoder.dense_stages):
+        res //= 2 if model.encoder.ds_blocks[i] else 1
+        for block in stage[-1].children():
+            layers = block.layers.layers
+            tails.append((BATCH * res * res, layers[0].in_channels, layers[2].out_channels, layers[4].out_channels))
+    convs = {}
+    for i, block in enumerate(model.decoder):
+        cin, cout = block.conv[0].in_channels, block.conv[0].out_channels
+        for key, count in (((cin, cout, res << i), (1, 0)), ((cout, cout, res << i), (0, block.n_layers - 1))):
+            e, p = convs.get(key, (0, 0))
+            convs[key] = (e + count[0], p + count[1])
+    return [(*k, *v) for k, v in convs.items()], tails
+
+
+def conv_shapes():
+    """{(cin, cout, res): {model: (n_entry, n_prologue)}} over both models'
+    ResBlock layers."""
+    out = {}
+    for name, shapes in (("ResUNet", layer_shapes()), ("RDResUNet", rd_shapes()[0])):
+        for cin, cout, res, e, p in shapes:
+            out.setdefault((cin, cout, res), {})[name] = (e, p)
+    return out
+
+
+def _new_totals():
+    return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0, "ops": 0.0,
+            "bound_by": {}, "layers": 0}
+
+
+def _add(tot, count, k_ms, p_ms, lib_ms, b_ms, b_by, ops, err):
+    tot["ms"] += count * k_ms
+    tot["plain_ms"] += count * p_ms
+    tot["library_ms"] += count * lib_ms
+    tot["bound_ms"] += count * b_ms
+    tot["ops"] += count * ops
+    tot["bound_by"][b_by] = tot["bound_by"].get(b_by, 0.0) + count * b_ms
+    tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    tot["layers"] += count
 
 
 def cuda_ms(fn, reps=10):
@@ -176,33 +237,48 @@ def ssim_bound_ms(b, h, w, backward, win=11, pool=False, l0=False):
     return bound(nbytes, float(b * ops), torch.float32)
 
 
+def _conv_inputs(device, gen, dtype, cin, cout, res):
+    x = torch.randn(BATCH, res, res, cin, device=device, generator=gen).to(dtype)
+    weight = torch.randn(cout, cin, 3, 3, device=device, generator=gen) / (3 * cin**0.5)
+    bias = 0.1 * torch.randn(cout, device=device, generator=gen)
+    ab = torch.stack([
+        torch.rand(cin, device=device, generator=gen) + 0.5,
+        0.3 * torch.randn(cin, device=device, generator=gen),
+    ])
+    return x, weight, bias, ab
+
+
+def _print_totals(what, dtype, totals, library):
+    for model, tot in totals.items():
+        print(
+            f"  {dtype}: one {what} of {model}'s {tot['layers']} ResBlock layers at batch {BATCH}: kernel "
+            f"{tot['ms']:.3f} ms ({tot['ops'] / tot['ms'] / 1e9:.2f} TFLOP/s), plain {tot['plain_ms']:.3f} ms, "
+            f"{library} {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms"
+        )
+
+
 def check_kernels(device, gen):
     """Phase 3a: the convchain forward kernel against reference_layer at
-    every layer shape; returns per-dtype totals over one forward."""
+    every layer shape of both models; returns per-dtype, per-model totals
+    over one forward."""
     from pssr2_tpu_torch.ops import convchain
 
     totals = {}
     print(
         f"phase kernels: convchain_fwd vs plain (batch {BATCH}): max abs error (relative) <= bound "
-        "for y, s1, s2 | ms of kernel, plain, F.conv2d (conv alone)"
+        "for y, s1, s2 | ms of kernel, plain, F.conv2d (conv alone) | layers a forward per model"
     )
     for dtype in (torch.float32, torch.bfloat16):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
-               "ops": 0.0, "bound_by": {}}
-        for cin, cout, res, n_entry, n_pro in layer_shapes():
-            x = torch.randn(BATCH, res, res, cin, device=device, generator=gen).to(dtype)
-            weight = torch.randn(cout, cin, 3, 3, device=device, generator=gen) / (3 * cin**0.5)
-            bias = 0.1 * torch.randn(cout, device=device, generator=gen)
-            ab = torch.stack([
-                torch.rand(cin, device=device, generator=gen) + 0.5,
-                0.3 * torch.randn(cin, device=device, generator=gen),
-            ])
+        tot = {"ResUNet": _new_totals(), "RDResUNet": _new_totals()}
+        for (cin, cout, res), per_model in conv_shapes().items():
+            x, weight, bias, ab = _conv_inputs(device, gen, dtype, cin, cout, res)
             x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory, as cuDNN takes it
             w_dt, b_dt = weight.to(dtype), bias.to(dtype)
             lib_ms = cuda_ms(lambda: F.conv2d(x_nchw, w_dt, b_dt, padding=1))
             b_ms, b_by = bound_ms(BATCH, res, cin, cout, dtype)
-            for prologue, count in ((False, n_entry), (True, n_pro)):
-                if count == 0:
+            for prologue in (False, True):
+                counts = {m: c[int(prologue)] for m, c in per_model.items()}
+                if not any(counts.values()):
                     continue
                 a = ab if prologue else None
                 with torch.no_grad():
@@ -214,34 +290,26 @@ def check_kernels(device, gen):
                     p_ms = cuda_ms(lambda: convchain.reference_layer(x, weight, bias, a))
                 ok = all(err <= lim for err, _, lim in errs.values())
                 print(
-                    f"  {str(dtype)[6:]:8s} {cin:4d}->{cout:4d} @{res:3d} prologue={int(prologue)} x{count}: "
+                    f"  {str(dtype)[6:]:8s} {cin:4d}->{cout:4d} @{res:3d} prologue={int(prologue)} {counts}: "
                     + " ".join(f"{k} {e:.3g} (rel {r:.2g}) <= {b:.3g}" for k, (e, r, b) in errs.items())
                     + f" | {k_ms:.4f} {p_ms:.4f} {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
                     + ("" if ok else "  <-- DISAGREES")
                 )
                 if not ok:
                     raise RuntimeError(f"convchain_fwd disagrees with its plain version: {errs}")
-                tot["ms"] += count * k_ms
-                tot["plain_ms"] += count * p_ms
-                tot["library_ms"] += count * lib_ms
-                tot["bound_ms"] += count * b_ms
-                tot["ops"] += count * 2.0 * BATCH * res * res * 9 * cin * cout
-                tot["bound_by"][b_by] = tot["bound_by"].get(b_by, 0.0) + count * b_ms
-                tot["max_abs_err"] = max(tot["max_abs_err"], errs["y"][0])
+                for m, count in counts.items():
+                    _add(tot[m], count, k_ms, p_ms, lib_ms, b_ms, b_by, 2.0 * BATCH * res * res * 9 * cin * cout,
+                         errs["y"][0])
         totals[dtype] = tot
-        print(
-            f"  {dtype}: one forward's {sum(e + p for *_, e, p in layer_shapes())} layers at batch {BATCH}: kernel {tot['ms']:.3f} ms "
-            f"({tot['ops'] / tot['ms'] / 1e9:.2f} TFLOP/s), plain {tot['plain_ms']:.3f} ms, "
-            f"F.conv2d {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms"
-        )
+        _print_totals("forward", dtype, tot, "F.conv2d")
     return totals
 
 
 def check_bwd(device, gen):
     """Phase 3b: the convchain backward kernels against reference_layer_bwd
-    at every layer shape, with the prologue on and off; returns per-dtype
-    totals over one backward of the model (each shape weighted by how often
-    the model runs it)."""
+    at every layer shape of both models, with the prologue on and off;
+    returns per-dtype, per-model totals over one backward (each shape
+    weighted by how often the model runs it)."""
     from pssr2_tpu_torch.ops import convchain
 
     totals = {}
@@ -250,16 +318,9 @@ def check_bwd(device, gen):
         "<= bound for dx, dW, dbias, d(a, b) | ms of kernel, plain, conv2d_input + conv2d_weight"
     )
     for dtype in (torch.float32, torch.bfloat16):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
-               "ops": 0.0, "bound_by": {}}
-        for cin, cout, res, n_entry, n_pro in layer_shapes():
-            x = torch.randn(BATCH, res, res, cin, device=device, generator=gen).to(dtype)
-            weight = torch.randn(cout, cin, 3, 3, device=device, generator=gen) / (3 * cin**0.5)
-            bias = 0.1 * torch.randn(cout, device=device, generator=gen)
-            ab = torch.stack([
-                torch.rand(cin, device=device, generator=gen) + 0.5,
-                0.3 * torch.randn(cin, device=device, generator=gen),
-            ])
+        tot = {"ResUNet": _new_totals(), "RDResUNet": _new_totals()}
+        for (cin, cout, res), per_model in conv_shapes().items():
+            x, weight, bias, ab = _conv_inputs(device, gen, dtype, cin, cout, res)
             gy = torch.randn(BATCH, res, res, cout, device=device, generator=gen).to(dtype)
             gs1 = 0.01 * torch.randn(cout, device=device, generator=gen)
             gs2 = 0.01 * torch.randn(cout, device=device, generator=gen)
@@ -271,7 +332,8 @@ def check_bwd(device, gen):
                 torch.nn.grad.conv2d_weight(x_nchw, w_dt.shape, g_nchw, padding=1)
 
             lib_ms = cuda_ms(library)
-            for prologue, count in ((False, n_entry), (True, n_pro)):
+            for prologue in (False, True):
+                counts = {m: c[int(prologue)] for m, c in per_model.items()}
                 a = ab if prologue else None
                 b_ms, b_by = bwd_bound_ms(BATCH, res, cin, cout, dtype, prologue)
                 with torch.no_grad():
@@ -285,26 +347,112 @@ def check_bwd(device, gen):
                     p_ms = cuda_ms(lambda: convchain.reference_layer_bwd(*args))
                 ok = all(err <= lim for err, _, lim in errs.values())
                 print(
-                    f"  {str(dtype)[6:]:8s} {cin:4d}->{cout:4d} @{res:3d} prologue={int(prologue)} x{count}: "
+                    f"  {str(dtype)[6:]:8s} {cin:4d}->{cout:4d} @{res:3d} prologue={int(prologue)} {counts}: "
                     + " ".join(f"{k} {e:.3g} (rel {r:.2g}) <= {b:.3g}" for k, (e, r, b) in errs.items())
                     + f" | {k_ms:.4f} {p_ms:.4f} {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
                     + ("" if ok else "  <-- DISAGREES")
                 )
                 if not ok:
                     raise RuntimeError(f"convchain_bwd disagrees with its plain version: {errs}")
-                tot["ms"] += count * k_ms
-                tot["plain_ms"] += count * p_ms
-                tot["library_ms"] += count * lib_ms
-                tot["bound_ms"] += count * b_ms
-                tot["ops"] += count * 2 * 2.0 * BATCH * res * res * 9 * cin * cout
-                tot["bound_by"][b_by] = tot["bound_by"].get(b_by, 0.0) + count * b_ms
-                tot["max_abs_err"] = max(tot["max_abs_err"], *(e for e, _, _ in errs.values()))
+                for m, count in counts.items():
+                    _add(tot[m], count, k_ms, p_ms, lib_ms, b_ms, b_by,
+                         2 * 2.0 * BATCH * res * res * 9 * cin * cout, max(e for e, _, _ in errs.values()))
         totals[dtype] = tot
-        print(
-            f"  {dtype}: one backward's {sum(e + p for *_, e, p in layer_shapes())} layers at batch {BATCH}: "
-            f"kernel {tot['ms']:.3f} ms ({tot['ops'] / tot['ms'] / 1e9:.2f} TFLOP/s), plain {tot['plain_ms']:.3f} ms, "
-            f"conv2d_input + conv2d_weight {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms"
-        )
+        _print_totals("backward", dtype, tot, "conv2d_input + conv2d_weight")
+    return totals
+
+
+def tail_bound_ms(m, c, inter, g, dtype, backward):
+    """Bound of the RDNet block tail on (m, c) rows.  Bytes: x and the
+    output (forward), or x and the cotangent read and dx written (backward),
+    in the dtype; the parameters read in the dtype; their gradients written
+    in f32 (backward).  Operations: fc1 and fc2, 2 m inter (c + g)
+    (forward); the backward recomputes fc1 and takes dz, dh, dW1 and dW2:
+    2 m inter (3 c + 2 g)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    params = c * inter + inter * g + 2 * c + inter + g
+    if backward:
+        nbytes = item * (m * (2 * c + g) + params) + 4 * params
+        ops = 2.0 * m * inter * (3 * c + 2 * g)
+    else:
+        nbytes = item * (m * (c + g) + params)
+        ops = 2.0 * m * inter * (c + g)
+    return (*bound(nbytes, ops, dtype), ops)
+
+
+def check_rdtail(device, gen):
+    """Phase 3d: the RDNet tail kernels against reference_tail and
+    reference_tail_bwd at each dense block's shape of the full-width
+    RDResUNet at batch 16, in f32 and bf16, with times, bounds and the
+    unfused library chain (F.layer_norm, F.linear, F.gelu, F.linear; and
+    its autograd backward) as the yardstick.  Returns per-dtype totals over
+    one forward and one backward of the model's 21 tails."""
+    from pssr2_tpu_torch.ops import rdtail
+
+    print(
+        f"phase kernels: rdtail forward (1 launch) and backward (2 launches) vs plain at the dense blocks' "
+        f"shapes (batch {BATCH}): max abs error (relative) <= bound | ms of kernel, plain, library; bound"
+    )
+    totals = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tot = {"fwd": _new_totals(), "bwd": _new_totals()}
+        for m, c, inter, g in rd_shapes()[1]:
+            x = torch.randn(m, c, device=device, generator=gen).to(dtype)
+            params = (
+                1.0 + 0.1 * torch.randn(c, device=device, generator=gen),
+                0.1 * torch.randn(c, device=device, generator=gen),
+                torch.randn(c, inter, device=device, generator=gen) / c**0.5,
+                0.1 * torch.randn(inter, device=device, generator=gen),
+                torch.randn(inter, g, device=device, generator=gen) / inter**0.5,
+                0.1 * torch.randn(g, device=device, generator=gen),
+            )
+            gout = torch.randn(m, g, device=device, generator=gen).to(dtype)
+            lib_params = [p.to(dtype) for p in (params[0], params[1], params[2].t().contiguous(), params[3],
+                                                params[4].t().contiguous(), params[5])]
+
+            def library(xl, pl):
+                h = F.layer_norm(xl, (c,), pl[0], pl[1], RD_EPS)
+                return F.linear(F.gelu(F.linear(h, pl[2], pl[3])), pl[4], pl[5])
+
+            with torch.no_grad():
+                got = rdtail._launch_fwd(x, params, RD_EPS)
+                ref = rdtail.reference_tail(x, *params, eps=RD_EPS)
+                got_b = rdtail._launch_bwd(x, params, gout, RD_EPS)
+                ref_b = rdtail.reference_tail_bwd(x, *params, gout, eps=RD_EPS)
+                torch.cuda.synchronize()
+                err_f = rdtail.errors(got, ref)
+                errs_b = rdtail.bwd_errors(got_b, ref_b)
+                del got, ref, got_b, ref_b
+                times_f = (cuda_ms(lambda: rdtail._launch_fwd(x, params, RD_EPS)),
+                           cuda_ms(lambda: rdtail.reference_tail(x, *params, eps=RD_EPS)),
+                           cuda_ms(lambda: library(x, lib_params)))
+                times_b = [cuda_ms(lambda: rdtail._launch_bwd(x, params, gout, RD_EPS)),
+                           cuda_ms(lambda: rdtail.reference_tail_bwd(x, *params, gout, eps=RD_EPS))]
+            xl = x.detach().requires_grad_()
+            pl = [p.detach().requires_grad_() for p in lib_params]
+            out = library(xl, pl)
+            times_b.append(cuda_ms(lambda: torch.autograd.grad(out, [xl, *pl], gout, retain_graph=True)))
+            del out
+            ok_f = err_f[0] <= err_f[2]
+            ok_b = all(e <= lim for e, _, lim in errs_b.values())
+            for kind, ok, times, errs in (("fwd", ok_f, times_f, {"out": err_f}), ("bwd", ok_b, times_b, errs_b)):
+                b_ms, b_by, ops = tail_bound_ms(m, c, inter, g, dtype, kind == "bwd")
+                print(
+                    f"  {str(dtype)[6:]:8s} {kind} M {m:5d} C {c:3d} inter {inter:4d} G {g:3d}: "
+                    + " ".join(f"{k} {e:.3g} (rel {r:.2g}) <= {b:.3g}" for k, (e, r, b) in errs.items())
+                    + f" | {times[0]:.4f} {times[1]:.4f} {times[2]:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                    f"{ops / times[0] / 1e9:.2f} TFLOP/s" + ("" if ok else "  <-- DISAGREES")
+                )
+                if not ok:
+                    raise RuntimeError(f"rdtail {kind} disagrees with its plain version at {(m, c, inter, g)}: {errs}")
+                _add(tot[kind], 1, *times, b_ms, b_by, ops, max(e for e, _, _ in errs.values()))
+        totals[dtype] = tot
+        for kind, t in tot.items():
+            print(
+                f"  {dtype}: rdtail {kind} over one {'forward' if kind == 'fwd' else 'backward'}'s {t['layers']} "
+                f"blocks: kernel {t['ms']:.3f} ms ({t['ops'] / t['ms'] / 1e9:.2f} TFLOP/s), plain "
+                f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms"
+            )
     return totals
 
 
@@ -456,44 +604,75 @@ def write_tiles(root, seed):
         tiff.imwrite(root / f"tile_{i:02d}.tif", np.clip(img, 0, 255).astype(np.uint8))
 
 
-def run_slice(device, seed, card, root, tmp):
-    """Phase 4: predict_images at full width in f32 and bf16; returns the
-    kernel launches of each run."""
+MODELS = ("ResUNet", "RDResUNet")
+
+
+@functools.cache
+def _state(kind, seed):
+    """The seeded weights of the full-width model ``kind`` (CPU tensors)."""
+    from pssr2_tpu_torch.weights import params_from_jax, seeded_jax_params, seeded_rdresunet_params
+
+    if kind == "ResUNet":
+        return params_from_jax(seeded_jax_params(HIDDEN, DEPTH, scale=SCALE, seed=seed))
+    return params_from_jax(seeded_rdresunet_params(scale=SCALE, seed=seed))
+
+
+def _model(state, dtype, device, kind="ResUNet", train=True):
+    """The full-width model ``kind`` with ``state`` loaded, in train mode
+    unless ``train`` is False."""
+    from pssr2_tpu_torch.models import RDResUNet, ResUNet
+
+    if kind == "ResUNet":
+        model = ResUNet(hidden=HIDDEN, depth=DEPTH, scale=SCALE, dtype=dtype, device=device)
+    else:
+        model = RDResUNet(scale=SCALE, dtype=dtype, device=device)
+    model.load_state_dict(state, strict=True)
+    return model.train() if train else model.eval()
+
+
+def run_slice(device, seed, card, root, tmp, kind):
+    """Phase 4: predict_images with the full-width model ``kind`` in f32 and
+    bf16, its launches checked exactly; the raw output of CPU_TILES[kind]
+    f32 tiles held against the same model on the CPU.  Returns the launches
+    of each run, in the order of COUNTERS."""
     from pssr2_tpu_torch import Poisson
     from pssr2_tpu_torch.data import ImageDataset, tiff
-    from pssr2_tpu_torch.models import ResUNet
-    from pssr2_tpu_torch.ops import convchain
     from pssr2_tpu_torch.predict import predict_images
-    from pssr2_tpu_torch.weights import params_from_jax, seeded_jax_params
 
-    state = params_from_jax(seeded_jax_params(HIDDEN, DEPTH, scale=SCALE, seed=seed))
+    state = _state(kind, seed)
     launches = {}
     hr_res = LR_RES * SCALE
     dataset = ImageDataset(root, hr_res=hr_res, lr_scale=SCALE, val_split=1, crappifier=Poisson())
     if dataset.is_lr or len(dataset) != TILES:
         raise RuntimeError(f"dataset: is_lr={dataset.is_lr}, {len(dataset)} items")
     batches = -(-TILES // BATCH)
+    # per forward: the model's convchain (and rdtail) forwards, nothing else
+    per_fwd = tuple(n if c in ("convchain_fwd", "rdtail_fwd") else 0
+                    for c, n in zip(COUNTERS, _per_step(train=False, kind=kind)))
+    want = tuple(batches * n for n in per_fwd)
+    n_cpu = CPU_TILES[kind]
 
     for dtype in (torch.float32, torch.bfloat16):
-        model = ResUNet(hidden=HIDDEN, depth=DEPTH, scale=SCALE, dtype=dtype, device=device)
-        model.load_state_dict(state, strict=True)
-        out_dir = Path(tmp, f"preds_{str(dtype)[6:]}")
-        np.random.seed(seed)
-        torch.cuda.synchronize()
-        convchain.launches = 0
-        start = time.perf_counter()
-        predict_images(model, dataset, device=device, batch_size=BATCH, out_dir=str(out_dir))
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - start
-        launches[dtype] = convchain.launches
-        want = sum(e + p for *_, e, p in layer_shapes()) * batches  # 36 per forward at full width
-        print(
-            f"phase serving {dtype}: {TILES} tiles {LR_RES}^2 -> {hr_res}^2 in {elapsed:.3f} s = "
-            f"{TILES / elapsed:.2f} tiles/s on {card} (first run: includes cuDNN set-up and tile "
-            f"loading); convchain_fwd launches {launches[dtype]} (want {want})"
-        )
-        if launches[dtype] != want:
-            raise RuntimeError(f"convchain_fwd launched {launches[dtype]} times, want {want}")
+        model = _model(state, dtype, device, kind, train=False)
+        out_dir = Path(tmp, f"preds_{kind}_{str(dtype)[6:]}")
+        launches[dtype] = (0,) * len(COUNTERS)
+        for call in ("first", "second"):  # the first with cuDNN set-up, the second warm
+            np.random.seed(seed)
+            torch.cuda.synchronize()
+            _reset_counts()
+            start = time.perf_counter()
+            predict_images(model, dataset, device=device, batch_size=BATCH, out_dir=str(out_dir))
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            counts = _counts()
+            launches[dtype] = tuple(a + b for a, b in zip(launches[dtype], counts))
+            print(
+                f"phase serving {kind} {dtype}, {call} call: {TILES} tiles {LR_RES}^2 -> {hr_res}^2 in "
+                f"{elapsed:.3f} s = {TILES / elapsed:.2f} tiles/s on {card} (tile loading and writing "
+                f"included); launches {counts} (want {want}, {', '.join(COUNTERS)})"
+            )
+            if counts != want:
+                raise RuntimeError(f"{kind} serving launched {counts}, want {want}")
         preds = sorted(out_dir.glob("*.tif"))
         if len(preds) != TILES:
             raise RuntimeError(f"{len(preds)} predictions written, want {TILES}")
@@ -502,20 +681,23 @@ def run_slice(device, seed, card, root, tmp):
             if image.shape != (hr_res, hr_res) or image.dtype != np.uint8:
                 raise RuntimeError(f"{p.name}: {image.shape} {image.dtype}")
 
-        # raw outputs of two tiles: finite; f32 against the CPU
+        # raw outputs of the first tiles: finite; f32 against the CPU
         np.random.seed(seed)
-        lr = torch.from_numpy(np.stack([dataset[i][1] for i in range(2)]))
+        lr = torch.from_numpy(np.stack([dataset[i][1] for i in range(n_cpu)]))
         with torch.inference_mode():
             out = model(lr.to(device)).cpu()
-        if out.shape != (2, 1, hr_res, hr_res) or not torch.isfinite(out).all():
+        if out.shape != (n_cpu, 1, hr_res, hr_res) or not torch.isfinite(out).all():
             raise RuntimeError(f"model output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
         if dtype == torch.float32:
-            cpu_model = copy.deepcopy(model).to("cpu")
+            del model
+            cpu_model = _model(state, None, "cpu", kind, train=False)
+            start = time.perf_counter()
             with torch.inference_mode():
                 ref = cpu_model(lr)
             err = (out - ref).abs().max().item()
-            print(f"  f32 card vs CPU on 2 tiles: max abs err {err:.3g} (bound {CPU_TOL}), "
-                  f"output range [{ref.min().item():.2f}, {ref.max().item():.2f}]")
+            print(f"  f32 card vs CPU on {n_cpu} tile(s): max abs err {err:.3g} (bound {CPU_TOL}), "
+                  f"output range [{ref.min().item():.2f}, {ref.max().item():.2f}], std {ref.std().item():.2f}; "
+                  f"CPU forward {time.perf_counter() - start:.1f} s")
             if not err <= CPU_TOL:
                 raise RuntimeError(f"card output differs from the CPU by {err}")
     return launches
@@ -523,84 +705,84 @@ def run_slice(device, seed, card, root, tmp):
 
 # the launch counters, in the order of _counts()
 COUNTERS = ("convchain_fwd", "convchain_bwd", "ssim_fwd", "ssim_bwd", "ssim_pool_fwd", "ssim_pool_bwd",
-            "ssim_l0_fwd", "ssim_l0_bwd")
+            "ssim_l0_fwd", "ssim_l0_bwd", "rdtail_fwd", "rdtail_bwd")
+# f32 tiles of the serving phase held against the CPU, per model
+CPU_TILES = {"ResUNet": 2, "RDResUNet": 1}
 
 
 def _counts():
-    from pssr2_tpu_torch.ops import convchain, ssimfused
+    from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused
 
     return (convchain.launches, convchain.bwd_launches, ssimfused.fwd_launches, ssimfused.bwd_launches,
             ssimfused.pool_fwd_launches, ssimfused.pool_bwd_launches, ssimfused.l0_fwd_launches,
-            ssimfused.l0_bwd_launches)
+            ssimfused.l0_bwd_launches, rdtail.launches, rdtail.bwd_launches)
 
 
 def _reset_counts():
-    from pssr2_tpu_torch.ops import convchain, ssimfused
+    from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused
 
     convchain.launches = convchain.bwd_launches = 0
     ssimfused.fwd_launches = ssimfused.bwd_launches = 0
     ssimfused.pool_fwd_launches = ssimfused.pool_bwd_launches = 0
     ssimfused.l0_fwd_launches = ssimfused.l0_bwd_launches = 0
+    rdtail.launches = rdtail.bwd_launches = 0
 
 
-def _per_step(train=True, metrics=False):
-    """Launches of one step of the full-width ResUNet with the MS-SSIM loss:
-    36 convchain forwards, 72 backward launches (2 a layer), and the loss's
-    level 0, three pool levels and last level, forward (1 launch each) and
-    backward (2 each); the metrics add a single-scale SSIM forward.  A
-    validation step runs the forwards only."""
-    n_layers = sum(e + p for *_, e, p in layer_shapes())
-    fwd = (n_layers, 0, 1 + int(metrics), 0, 3, 0, 1, 0)
-    bwd = (0, 2 * n_layers, 0, 2, 0, 6, 0, 2)
+@functools.cache
+def _per_step(train=True, metrics=False, kind="ResUNet"):
+    """Launches of one step of the full-width model with the MS-SSIM loss:
+    its convchain forwards (ResUNet 36, RDResUNet 16) and 2 backward
+    launches a layer; RDResUNet's 21 rdtail forwards and 2 backward
+    launches each; the loss's level 0, three pool levels and last level,
+    forward (1 launch each) and backward (2 each); the metrics add a
+    single-scale SSIM forward.  A validation step runs the forwards only."""
+    if kind == "ResUNet":
+        n_layers, n_tails = sum(e + p for *_, e, p in layer_shapes()), 0
+    else:
+        convs, tails = rd_shapes()
+        n_layers, n_tails = sum(e + p for *_, e, p in convs), len(tails)
+    fwd = (n_layers, 0, 1 + int(metrics), 0, 3, 0, 1, 0, n_tails, 0)
+    bwd = (0, 2 * n_layers, 0, 2, 0, 6, 0, 2, 0, 2 * n_tails)
     return tuple(f + b * int(train) for f, b in zip(fwd, bwd))
 
 
-def _train_parts(seed):
+def _train_parts(seed, kind="ResUNet"):
     from pssr2_tpu_torch import Poisson
     from pssr2_tpu_torch.data.pipeline import make_device_gen_pair
     from pssr2_tpu_torch.train import _build_paired_steps
     from pssr2_tpu_torch.util import SSIMLoss
-    from pssr2_tpu_torch.weights import params_from_jax, seeded_jax_params
 
-    state = params_from_jax(seeded_jax_params(HIDDEN, DEPTH, scale=SCALE, seed=seed))
     base = make_device_gen_pair(SCALE, Poisson())
 
     def gen_pair(generator, batch, augment):
         return base(generator, batch)
 
-    return state, gen_pair, SSIMLoss(mix=0.8, ms=True), _build_paired_steps
+    return _state(kind, seed), gen_pair, SSIMLoss(mix=0.8, ms=True), _build_paired_steps
 
 
-def _model(state, dtype, device):
-    from pssr2_tpu_torch.models import ResUNet
-
-    model = ResUNet(hidden=HIDDEN, depth=DEPTH, scale=SCALE, dtype=dtype, device=device)
-    model.load_state_dict(state, strict=True)
-    return model.train()
-
-
-def run_train(device, seed, card, root):
-    """Phase 5a: the training step at full width in bf16 and f32 over
-    PatchLoader batches, with the launches of each step checked; returns
-    the launches of each run, in the order of COUNTERS."""
+def run_train(device, seed, card, root, kind):
+    """Phase 5a: the training step of the full-width model ``kind`` in bf16
+    and f32 over PatchLoader batches, with the launches of each step
+    checked; returns the launches of each run, in the order of COUNTERS."""
     from pssr2_tpu_torch import Poisson
     from pssr2_tpu_torch.data import ImageDataset
     from pssr2_tpu_torch.data.indexing import RandomIterIdx
     from pssr2_tpu_torch.data.pipeline import PatchLoader
     from pssr2_tpu_torch.optim import AdamW
 
-    state, gen_pair, loss_fn, build = _train_parts(seed)
+    state, gen_pair, loss_fn, build = _train_parts(seed, kind)
     step, _ = build(loss_fn, False, gen_pair)
     hr_res = LR_RES * SCALE
     dataset = ImageDataset(root, hr_res=hr_res, lr_scale=SCALE, val_split=1, crappifier=Poisson())
-    per_step = _per_step()
+    per_step = _per_step(kind=kind)
     launches = {}
     for dtype in (torch.bfloat16, torch.float32):
-        model = _model(state, dtype, device)
+        model = _model(state, dtype, device, kind)
         optimizer = AdamW(LR_RATE).init(model.parameters())
         loader = PatchLoader(dataset, RandomIterIdx(range(len(dataset)), rng=np.random.default_rng(seed)), BATCH)
         times, losses, k = [], [], 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         for _ in range(TRAIN_EPOCHS):
             for batch, n_valid in loader:
@@ -621,20 +803,22 @@ def run_train(device, seed, card, root):
         before = _counts()
         loss, (mse, ssim_val), _ = step(model, optimizer, hr_u8, None, generator, LR_RATE, n_valid, True)
         delta = tuple(a - b for a, b in zip(_counts(), before))
-        want = _per_step(metrics=True)
+        want = _per_step(metrics=True, kind=kind)
         values = [loss.item(), mse.item(), ssim_val.item()]
         if delta != want or not np.isfinite(values).all():
             raise RuntimeError(f"metrics step: launches {delta} (want {want}), loss, mse, ssim {values}")
         launches[dtype] = _counts()
         steady = sum(times[1:]) / len(times[1:])
         print(
-            f"phase training {dtype}: {k} steps + 1 with metrics at batch {BATCH} ({hr_res}^2 HR, "
+            f"phase training {kind} {dtype}: {k} steps + 1 with metrics at batch {BATCH} ({hr_res}^2 HR, "
             f"{LR_RES}^2 LR) on {card}: steady step {1e3 * steady:.2f} ms = {BATCH / steady:.2f} patches/s "
             f"(steps after the first: " + ", ".join(f"{1e3 * t:.2f}" for t in times[1:]) + f" ms; first "
             f"{1e3 * times[0]:.2f} ms); losses " + ", ".join(f"{v:.6f}" for v in losses)
             + f"; metrics step loss {values[0]:.6f} mse {values[1]:.6g} ssim {values[2]:.6f}; launches per step "
-            f"{per_step} ({', '.join(COUNTERS)}), whole run {launches[dtype]}"
+            f"{per_step} ({', '.join(COUNTERS)}), whole run {launches[dtype]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
         )
+        del model, optimizer
     return launches
 
 
@@ -711,25 +895,25 @@ def compare_cpu_step(device, seed, root):
         raise RuntimeError(f"card train step differs from the CPU: {bad}")
 
 
-def run_train_paired(device, seed, card, root, tmp):
-    """Phase 6: ``train_paired`` at full width in bf16 compute, batch 16,
-    over the TILES 512^2 tiles (Poisson noise, augmentation and validation
-    on the device pipeline), with a ReduceLROnPlateau, weight checkpoints
-    and a state directory: TP_EPOCHS[0] epochs, then a second call with
-    TP_EPOCHS[1] that must resume from the saved state and run the rest.
-    Returns the launches of both calls, in the order of COUNTERS."""
+def run_train_paired(device, seed, card, root, tmp, kind, epochs_seq):
+    """Phase 6: ``train_paired`` with the full-width model ``kind`` in bf16
+    compute, batch 16, over the TILES 512^2 tiles (Poisson noise,
+    augmentation and validation on the device pipeline), with a
+    ReduceLROnPlateau, weight checkpoints and a state directory: one call
+    per entry of ``epochs_seq``, each to that many epochs; every call after
+    the first must resume from the saved state and run the rest.  Returns
+    the launches of all calls, in the order of COUNTERS."""
     from pssr2_tpu_torch import Poisson
     from pssr2_tpu_torch.data import ImageDataset
     from pssr2_tpu_torch.optim import AdamW, ReduceLROnPlateau
     from pssr2_tpu_torch.train import train_paired
     from pssr2_tpu_torch.util import SSIMLoss
-    from pssr2_tpu_torch.weights import params_from_jax, seeded_jax_params
 
-    state = params_from_jax(seeded_jax_params(HIDDEN, DEPTH, scale=SCALE, seed=seed))
+    state = _state(kind, seed)
     hr_res = LR_RES * SCALE
     dataset = ImageDataset(root, hr_res=hr_res, lr_scale=SCALE, crappifier=Poisson(), val_split=TP_VAL_SPLIT)
     n_train, n_val = len(dataset) - len(dataset.val_idx), len(dataset.val_idx)
-    state_dir, ckpt_dir = Path(tmp, "train_state"), Path(tmp, "checkpoints")
+    state_dir, ckpt_dir = Path(tmp, f"{kind}_train_state"), Path(tmp, f"{kind}_checkpoints")
 
     class EpochClock(ReduceLROnPlateau):
         """The scheduler train_paired steps at each epoch's end, stamping it."""
@@ -746,8 +930,8 @@ def run_train_paired(device, seed, card, root, tmp):
     torch.cuda.synchronize()
     _reset_counts()
     results, printed = [], []
-    for epochs in TP_EPOCHS:
-        model = _model(state, torch.bfloat16, device)
+    for epochs in epochs_seq:
+        model = _model(state, torch.bfloat16, device, kind)
         optim = AdamW(LR_RATE)
         start = time.perf_counter()
         EpochClock.stamps = [start]
@@ -758,35 +942,38 @@ def run_train_paired(device, seed, card, root, tmp):
         ))))
         epoch_s = np.diff(EpochClock.stamps)
         print(
-            f"phase train_paired bf16 (epochs={epochs}) on {card}: {n_train} training and {n_val} validation "
-            f"patches an epoch at batch {BATCH}; epoch times " + ", ".join(f"{t:.3f}" for t in epoch_s)
+            f"phase train_paired {kind} bf16 (epochs={epochs}) on {card}: {n_train} training and {n_val} "
+            f"validation patches an epoch at batch {BATCH}; epoch times " + ", ".join(f"{t:.3f}" for t in epoch_s)
             + " s (training, validation, checkpoints; the first with cuDNN set-up) = "
             + ", ".join(f"{n_train / t:.2f}" for t in epoch_s)
             + f" training patches/s; call {time.perf_counter() - start:.2f} s with set-up; "
             f"train losses {results[-1][0]}, val losses {results[-1][1]}"
         )
+        del model, optim
     counts = _counts()
-    resumed = f"Resuming training from epoch {TP_EPOCHS[0]}"
-    (_, val_1), (_, val_2) = results
+    last = epochs_seq[-1]
+    resumes = [f"Resuming training from epoch {e}" for e in epochs_seq[:-1]]
+    resumed = all(any(r in line for line in lines) for r, lines in zip(resumes, printed[1:]))
+    runs = [len(val) for _, val in results]
     finite = all(np.isfinite(v) for run in results for part in run for v in part)
     n_batches, n_val_batches = -(-n_train // BATCH), -(-n_val // BATCH)
     n_metrics = len({i for i in range(n_batches) if i % 50 == 0 or i == n_batches - 1})  # log_frequency 50
-    per_epoch = [_per_step(metrics=True)] * n_metrics + [_per_step()] * (n_batches - n_metrics) \
-        + [_per_step(train=False)] * n_val_batches
-    want = tuple(TP_EPOCHS[1] * sum(c) for c in zip(*per_epoch))
-    want_steps = [(e, min(BATCH, n_train - BATCH * i)) for e in range(TP_EPOCHS[1]) for i in range(n_batches)]
+    per_epoch = [_per_step(metrics=True, kind=kind)] * n_metrics + [_per_step(kind=kind)] * (n_batches - n_metrics) \
+        + [_per_step(train=False, kind=kind)] * n_val_batches
+    want = tuple(last * sum(c) for c in zip(*per_epoch))
+    want_steps = [(e, min(BATCH, n_train - BATCH * i)) for e in range(last) for i in range(n_batches)]
     ckpts = sorted(p.name for p in ckpt_dir.iterdir())
     states = sorted(p.name for p in state_dir.iterdir())
+    want_states = sorted({f"epoch_{max(last - 1, 1)}.pt", f"epoch_{last}.pt"})
     print(
-        f"  second call printed {resumed!r}: {any(resumed in line for line in printed[1])}; epochs run "
-        f"{len(val_1)} + {len(val_2)}; (epoch, n_valid) of the steps {steps}; state files {states}; "
+        f"  later calls printed {resumes}: {resumed}; epochs run {runs}; (epoch, n_valid) of the steps {steps}; "
+        f"state files {states} ({', '.join(f'{(state_dir / n).stat().st_size / 1e9:.2f}' for n in states)} GB); "
         f"weight checkpoints {ckpts}; launches {counts} (want {want}, {', '.join(COUNTERS)})"
     )
-    if not any(resumed in line for line in printed[1]) or len(val_1) != TP_EPOCHS[0] \
-            or len(val_2) != TP_EPOCHS[1] - TP_EPOCHS[0] or not finite or counts != want or steps != want_steps \
-            or states != [f"epoch_{TP_EPOCHS[1] - 1}.pt", f"epoch_{TP_EPOCHS[1]}.pt"] or not ckpts:
-        raise RuntimeError(f"train_paired: results {results}, launches {counts} (want {want}), steps {steps}, "
-                           f"states {states}, checkpoints {ckpts}, resume printed: {printed[1][:3]}")
+    if not resumed or runs != [b - a for a, b in zip((0, *epochs_seq), epochs_seq)] or not finite \
+            or counts != want or steps != want_steps or states != want_states or not ckpts:
+        raise RuntimeError(f"train_paired {kind}: results {results}, launches {counts} (want {want}), steps {steps}, "
+                           f"states {states}, checkpoints {ckpts}, printed {[p[:3] for p in printed]}")
     return counts
 
 
@@ -803,35 +990,43 @@ def _capture_stdout(fn):
     return text.splitlines()
 
 
-def kernels_line(fwd, bwd, ssim, serving, training, paired):
-    """The per-kernel entries of the JSON line.  Launches are counted over
-    the main paths: serving, the training steps and train_paired (bf16)
-    for the convchain forward; the training steps and train_paired for the
-    others (both dtypes for the f32 SSIM kernels)."""
-    def runs(i, dtype=None):
-        total = sum(c[i] for dt, c in training.items() if dtype in (None, dt))
-        return total + (paired[i] if dtype in (None, torch.bfloat16) else 0)
+def kernels_line(fwd, bwd, ssim, rd, launches):
+    """The per-kernel entries of the JSON line.  ``launches[dtype]`` holds
+    the counts of every main path in that dtype (serving, the training
+    steps and train_paired of both models), in the order of COUNTERS; the
+    f32 SSIM kernels count the runs of both dtypes.  The convchain times are
+    those of one ResUNet forward or backward (36 layers), the rdtail times
+    those of one RDResUNet forward or backward (21 tails)."""
+    def total(name, dtype=None):
+        i = COUNTERS.index(name)
+        return sum(c[i] for dt, c in launches.items() if dtype in (None, dt))
 
     entries = []
-    for name, totals, line, i in (("convchain_fwd", fwd, 185, 0), ("convchain_bwd", bwd, 277, 1)):
-        for dtype, tot in totals.items():
-            launches = runs(i, dtype) + (serving[dtype] if i == 0 else 0)
-            entries.append((f"{name}[{str(dtype)[6:]}]", "convchain" if i == 0 else "convchain_bwd",
-                            f"convchain.py:{line}", launches,
+    for name, totals, line in (("convchain_fwd", fwd, 185), ("convchain_bwd", bwd, 277)):
+        for dtype, per_model in totals.items():
+            tot = per_model["ResUNet"]
+            entries.append((f"{name}[{str(dtype)[6:]}]", "convchain" if name == "convchain_fwd" else "convchain_bwd",
+                            f"convchain.py:{line}", total(name, dtype),
                             dict(tot, bound_by=max(tot["bound_by"], key=tot["bound_by"].get))))
     for name, line in (("ssim_fwd", 239), ("ssim_bwd", 254), ("ssim_pool_fwd", 292), ("ssim_pool_bwd", 314),
                        ("ssim_l0_fwd", 354), ("ssim_l0_bwd", 380)):
-        entries.append((name, "ssimfused", f"ssimfused.py:{line}", runs(COUNTERS.index(name)), ssim[name]))
+        entries.append((name, "ssimfused", f"ssimfused.py:{line}", total(name), ssim[name]))
+    for kind, line in (("fwd", 109), ("bwd", 117)):
+        for dtype, tots in rd.items():
+            tot = tots[kind]
+            entries.append((f"rdtail_{kind}[{str(dtype)[6:]}]", "rdtail", f"rdtail.py:{line}",
+                            total(f"rdtail_{kind}", dtype),
+                            dict(tot, bound_by=max(tot["bound_by"], key=tot["bound_by"].get))))
     kernels = []
-    for name, source, replaces, launches, tot in entries:
-        if launches == 0:
+    for name, source, replaces, n, tot in entries:
+        if n == 0:
             raise RuntimeError(f"{name} was launched no time on the main paths")
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"pssr2_tpu_torch/csrc/{source}.cu",
             "replaces": f"pssr2_tpu/ops/pallas/{replaces}",
-            "launches": launches,
+            "launches": n,
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"],
             "plain_ms": tot["plain_ms"],
@@ -875,16 +1070,27 @@ def main():
     fwd = check_kernels(device, gen)
     bwd = check_bwd(device, gen)
     ssim = check_ssim(device, gen)
+    rd = check_rdtail(device, gen)
+    launches = {dtype: (0,) * len(COUNTERS) for dtype in (torch.float32, torch.bfloat16)}
+
+    def add(dtype, counts):
+        launches[dtype] = tuple(a + b for a, b in zip(launches[dtype], counts))
+
     with tempfile.TemporaryDirectory(prefix="pssr2_smoke_") as tmp:
         root = Path(tmp, "hr")
         root.mkdir()
         write_tiles(root, args.seed)
-        serving = run_slice(device, args.seed, card, root, tmp)
-        training = run_train(device, args.seed, card, root)
+        for kind in MODELS:
+            for dtype, counts in run_slice(device, args.seed, card, root, tmp, kind).items():
+                add(dtype, counts)
+        for kind in MODELS:
+            for dtype, counts in run_train(device, args.seed, card, root, kind).items():
+                add(dtype, counts)
         compare_cpu_step(device, args.seed, root)
-        paired = run_train_paired(device, args.seed, card, root, tmp)
+        add(torch.bfloat16, run_train_paired(device, args.seed, card, root, tmp, "ResUNet", TP_EPOCHS))
+        add(torch.bfloat16, run_train_paired(device, args.seed, card, root, tmp, "RDResUNet", RD_TP_EPOCHS))
 
-    print(json.dumps({"kernels": kernels_line(fwd, bwd, ssim, serving, training, paired)}))
+    print(json.dumps({"kernels": kernels_line(fwd, bwd, ssim, rd, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0
 

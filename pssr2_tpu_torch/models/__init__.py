@@ -1,6 +1,7 @@
-"""Models of the port (counterpart: pssr2_tpu/models): ResUNet, NCHW
-[0, 255] at the call boundary, NHWC inside."""
+"""Models of the port (counterpart: pssr2_tpu/models): ResUNet and
+RDResUNet, NCHW [0, 255] at the call boundary, NHWC inside."""
 
+from .rdresunet import RDResUNet
 from .resunet import ResUNet
 
-__all__ = ["ResUNet"]
+__all__ = ["RDResUNet", "ResUNet"]

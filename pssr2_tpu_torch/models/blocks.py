@@ -32,9 +32,13 @@ def conv_nhwc(x, layer: nn.Conv2d):
     """``layer`` on a channels-last tensor in x's dtype: the conv rounds to
     the dtype first, then the bias is added in the dtype (the JAX conv's
     order).  For the convs that no TPU kernel computed: the 1x1
-    ``respass`` and the reconstruction head."""
+    ``respass``, the reconstruction head, and RDNet's stem, transitions,
+    depthwise 7x7 and squeeze-excitation."""
     dt = x.dtype
-    y = F.conv2d(x.permute(0, 3, 1, 2), layer.weight.to(dt), padding=layer.padding)
+    y = F.conv2d(
+        x.permute(0, 3, 1, 2), layer.weight.to(dt), padding=layer.padding, stride=layer.stride,
+        groups=layer.groups,
+    )
     return y.permute(0, 2, 3, 1) + layer.bias.to(dt)
 
 

@@ -48,7 +48,9 @@ def predict_images(
     Only uses evaluation images; set ``val_split=1`` to use all images.
 
     Args:
-        model : Model to receive low-resolution images; moved to ``device``.
+        model : Any model of the port (``models.ResUNet``,
+            ``models.RDResUNet``) to receive low-resolution images; moved
+            to ``device``.
 
         dataset : Dataset to load low-resolution images from.
 

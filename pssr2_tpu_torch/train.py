@@ -230,7 +230,8 @@ def train_paired(
     (reference: pssr/train.py:19-166; same control surface).
 
     Args:
-        model : ResUNet (``torch.nn.Module``) to train; moved to ``device``.
+        model : Any model of the port (``models.ResUNet``, ``models.RDResUNet``;
+            a ``torch.nn.Module``) to train; moved to ``device``.
 
         dataset : Paired image dataset to load data from.
 

@@ -15,7 +15,7 @@ the CPU tests hold those against the JAX package.
 import pytest
 import torch
 
-from pssr2_tpu_torch.ops import convchain, ssimfused
+from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused
 
 pytestmark = pytest.mark.cuda
 
@@ -309,3 +309,69 @@ def test_ssim_largest_window_matches_plain(device):
     _close(cs, cs_ref, "cs")
     _close(xk.grad, xr.grad, "g")
     _close(yk.grad, yr.grad, "g")
+
+
+# (M, C, inter, G) of the RDNet block tail: tests/test_rdtail.py's shape,
+# ragged sizes in every dimension, stage 0's first block, stage 6's last
+# (the widest C and G), and the largest C and G the kernels take
+RD_SHAPES = [(256, 48, 192, 24), (100, 37, 75, 13), (2048, 128, 512, 64), (1024, 816, 3264, 224),
+             (64, rdtail.MAX_C, 160, rdtail.MAX_G)]
+
+
+def _rd_inputs(device, dtype, m, c, inter, g, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda *s, sc=0.1: (sc * torch.randn(*s, generator=gen)).to(device)
+    x = torch.randn(m, c, generator=gen).to(device, dtype)
+    params = (mk(c, sc=0.5) + 1.0, mk(c), mk(c, inter, sc=c**-0.5), mk(inter), mk(inter, g, sc=inter**-0.5), mk(g))
+    return x, params, torch.randn(m, g, generator=gen).to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", RD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_rdtail_fwd_bwd_match_plain(device, shape, dtype):
+    """The forward kernel against reference_tail within rdtail.TOLERANCE, and
+    the two backward launches against reference_tail_bwd within
+    rdtail.BWD_TOLERANCE and the row-count bound of the sums."""
+    x, params, gout = _rd_inputs(device, dtype, *shape)
+    with torch.no_grad():
+        before = (rdtail.launches, rdtail.bwd_launches)
+        out = rdtail._launch_fwd(x, params, 1e-6)
+        grads = rdtail._launch_bwd(x, params, gout, 1e-6)
+        assert (rdtail.launches, rdtail.bwd_launches) == (before[0] + 1, before[1] + 2)
+        ref = rdtail.reference_tail(x, *params, eps=1e-6)
+        ref_grads = rdtail.reference_tail_bwd(x, *params, gout, eps=1e-6)
+    torch.cuda.synchronize()
+    assert out.shape == (shape[0], shape[3]) and out.dtype == dtype
+    err, _, bound = rdtail.errors(out, ref)
+    assert err <= bound, f"out: max abs error {err} > {bound}"
+    for name, (err, _, bound) in rdtail.bwd_errors(grads, ref_grads).items():
+        assert err <= bound, f"{name}: max abs error {err} > {bound}"
+
+
+def test_rdtail_autograd_goes_through_kernels(device):
+    """Under autograd a CUDA tensor launches the forward and both backward
+    kernels, and the parameters' gradients come back in f32."""
+    x, params, gout = _rd_inputs(device, torch.bfloat16, 300, 40, 160, 24)
+    x = x.clone().requires_grad_()
+    params = [p.clone().requires_grad_() for p in params]
+    f0, b0 = rdtail.launches, rdtail.bwd_launches
+    out = rdtail.fused_rd_tail(x, *params, eps=1e-6)
+    out.backward(gout)
+    assert (rdtail.launches, rdtail.bwd_launches) == (f0 + 1, b0 + 2)
+    with torch.no_grad():
+        ref = rdtail.reference_tail_bwd(x, *params, gout, eps=1e-6)
+    got = (x.grad, *(p.grad for p in params))
+    assert x.grad.dtype == torch.bfloat16 and all(p.grad.dtype == torch.float32 for p in params)
+    for name, (err, _, bound) in rdtail.bwd_errors(got, ref).items():
+        assert err <= bound, f"{name}: max abs error {err} > {bound}"
+
+
+def test_rdtail_refuses_what_it_does_not_take(device):
+    x, params, _ = _rd_inputs(device, torch.float32, 64, 32, 64, 16)
+    with pytest.raises(TypeError):
+        rdtail.fused_rd_tail(x.half(), *params, eps=1e-6)
+    with pytest.raises(ValueError):
+        rdtail.fused_rd_tail(x[:, :16], *params, eps=1e-6)
+    with pytest.raises(ValueError, match="G <="):
+        wide = (*params[:4], torch.zeros(64, rdtail.MAX_G + 1, device=device), torch.zeros(rdtail.MAX_G + 1, device=device))
+        rdtail.fused_rd_tail(x, *wide, eps=1e-6)

@@ -92,7 +92,7 @@ leaked = sorted(
     if m.split(".")[0] in ("pssr2_tpu", "jax", "flax", "tqdm", "PIL") and sys.modules[m] is not None
 )
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -105,7 +105,9 @@ def test_port_imports_standalone():
         cwd=Path(__file__).resolve().parents[1],
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    names = proc.stdout.split()
+    assert len(names) >= 17
+    assert {"pssr2_tpu_torch.models.rdresunet", "pssr2_tpu_torch.models.rdnet", "pssr2_tpu_torch.ops.rdtail"} <= set(names)
 
 
 def test_entry_points_refuse_missing_card(tmp_path):

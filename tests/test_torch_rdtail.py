@@ -1,0 +1,164 @@
+"""The port's RDNet block tail (pssr2_tpu_torch/ops/rdtail.py) against the
+JAX package's (pssr2_tpu/ops/pallas/rdtail.py), on the CPU.
+
+The plain versions ``reference_tail`` and ``reference_tail_bwd`` are held
+against JAX's ``reference_tail`` (and its ``jax.vjp``) and against the
+Pallas kernel run in interpret mode (``fused_rd_tail`` with ``MODE =
+"interpret"``, and its custom VJP), in f32 and bf16, at the JAX tests'
+shape and at one whose sizes are no multiples of 8.
+
+Tolerances.  f32: 2e-6 on the outputs (of magnitude about 1) and 3e-5 of
+the largest element of each gradient, those of tests/test_rdtail.py: only
+the order of f32 sums differs.  bf16: the two packages round the same
+values to bf16 at the same places, so most elements agree exactly; an f32
+sum taken in another order can move a rounding by one bf16 ulp, so the
+outputs and dx get 2 bf16 ulps (1/64) of their largest element, the f32
+parameter gradients (sums of bf16 terms) 1 bf16 ulp (1/256), and the
+mean error stays below 1/1000 of the largest.  Against JAX's
+``reference_tail`` at most 1% of the bf16 outputs may differ at all; the
+interpreted kernel differs from that reference itself by one bf16 ulp in
+many more (its dots round otherwise in interpret mode).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pssr2_tpu.ops.pallas import rdtail as jrdtail
+from pssr2_tpu_torch.ops import rdtail
+
+torch.set_num_threads(2)
+
+EPS = 1e-6
+# (M, C, inter, G): tests/test_rdtail.py's shape, and one of no multiples of 8
+SHAPES = [(256, 48, 192, 24), (100, 37, 75, 13)]
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    old = jrdtail.MODE
+    jrdtail.MODE = "interpret"
+    yield
+    jrdtail.MODE = old
+
+
+def _inputs(shape, seed):
+    m, c, inter, g = shape
+    rng = np.random.default_rng(seed)
+    mk = lambda *s, sc=0.1: (rng.standard_normal(s) * sc).astype(np.float32)
+    x = rng.standard_normal((m, c)).astype(np.float32)
+    params = (mk(c, sc=0.5) + 1.0, mk(c), mk(c, inter), mk(inter), mk(inter, g), mk(g))
+    gout = rng.standard_normal((m, g)).astype(np.float32)
+    return x, params, gout
+
+
+def _params_t(params):
+    return [torch.from_numpy(p) for p in params]
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+
+
+def _close(got, ref, dtype, kind, name=""):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, name
+    scale = max(1e-3, float(np.abs(ref).max()))
+    err = np.abs(got - ref)
+    if dtype == "f32":
+        bound = 2e-6 if kind == "out" else 3e-5 * scale
+    else:
+        bound = (1 / 64 if kind in ("out", "dx") else 1 / 256) * scale
+        assert err.mean() <= 1e-3 * scale, (name, err.mean(), scale)
+    assert err.max() <= bound, (name, err.max(), bound)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_reference_tail_matches_jax(shape, dtype):
+    x, params, _ = _inputs(shape, 0)
+    xj, xt = _jax(x, dtype), _torch(x, dtype)
+    pj = tuple(jnp.asarray(p) for p in params)
+    pt = tuple(torch.from_numpy(p) for p in params)
+    out = rdtail.reference_tail(xt, *pt, eps=EPS)
+    assert out.dtype == xt.dtype and out.shape == (shape[0], shape[3])
+    ref = jrdtail.reference_tail(xj, *pj, eps=EPS)
+    _close(out.float().numpy(), ref, dtype, "out")
+    assert (out.float().numpy() != np.asarray(ref, np.float32)).mean() <= (0.01 if dtype == "bf16" else 1.0)
+    _close(out.float().numpy(), jrdtail.fused_rd_tail(xj, *pj, eps=EPS), dtype, "out")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_reference_tail_bwd_matches_jax(shape, dtype):
+    """reference_tail_bwd against jax.vjp of the interpreted kernel (its
+    custom VJP, ``_tail_bwd_kernel``) and of JAX's reference_tail."""
+    x, params, gout = _inputs(shape, 1)
+    xj, gj = _jax(x, dtype), _jax(gout, dtype)
+    pj = tuple(jnp.asarray(p) for p in params)
+    grads = rdtail.reference_tail_bwd(
+        _torch(x, dtype), *(torch.from_numpy(p) for p in params), _torch(gout, dtype), eps=EPS
+    )
+    assert grads[0].dtype == (torch.bfloat16 if dtype == "bf16" else torch.float32)
+    assert all(g.dtype == torch.float32 for g in grads[1:])
+    fns = [jrdtail.fused_rd_tail]
+    if dtype == "f32":
+        # XLA's autodiff of the reference rounds elsewhere in bf16 (its
+        # GELU derivative is of the rounded polynomial), so only f32 here
+        fns.append(jrdtail.reference_tail)
+    for fn in fns:
+        _, vjp = jax.vjp(lambda x_, *p: fn(x_, *p, eps=EPS), xj, *pj)
+        for name, got, ref in zip(rdtail.GRAD_NAMES, grads, vjp(gj)):
+            _close(got.float().numpy(), ref, dtype, "dx" if name == "dx" else "param", name)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fused_rd_tail_cpu_autograd(dtype):
+    """On CPU tensors fused_rd_tail runs the plain versions under autograd,
+    launches nothing, and gives the parameters' gradients in f32."""
+    shape = SHAPES[1]
+    x, params, gout = _inputs(shape, 2)
+    xt = _torch(x, dtype).requires_grad_()
+    pt = [torch.from_numpy(p).requires_grad_() for p in params]
+    before = (rdtail.launches, rdtail.bwd_launches)
+    out = rdtail.fused_rd_tail(xt, *pt, eps=EPS)
+    np.testing.assert_array_equal(
+        out.detach().float().numpy(), rdtail.reference_tail(xt.detach(), *_params_t(params), eps=EPS).float().numpy()
+    )
+    out.backward(_torch(gout, dtype))
+    ref = rdtail.reference_tail_bwd(xt.detach(), *_params_t(params), _torch(gout, dtype), eps=EPS)
+    for name, t, r in zip(rdtail.GRAD_NAMES, [xt, *pt], ref):
+        assert t.grad.dtype == t.dtype, name
+        np.testing.assert_array_equal(t.grad.float().numpy(), r.float().numpy(), err_msg=name)
+    assert (rdtail.launches, rdtail.bwd_launches) == before
+
+
+def test_gelus_match_jax():
+    """The four GELU helpers against swinblock's, on both sides of the
+    polynomial's [-4, 4] range, in f32 (bit for bit up to 1 f32 ulp)."""
+    from pssr2_tpu.ops.pallas import swinblock
+
+    z = np.linspace(-6, 6, 2401, dtype=np.float32)
+    for ours, theirs in ((rdtail._gelu_exact, swinblock._gelu_exact), (rdtail._gelu_fast, swinblock._gelu_fast),
+                         (rdtail._dgelu_exact, swinblock._dgelu_exact), (rdtail._dgelu_fast, swinblock._dgelu_fast)):
+        got = ours(torch.from_numpy(z)).numpy()
+        ref = np.asarray(theirs(jnp.asarray(z)))
+        np.testing.assert_allclose(got, ref, rtol=2e-7, atol=2e-7, err_msg=ours.__name__)
+
+
+def test_errors_helpers_bound_by_dtype():
+    """errors / bwd_errors: zero against themselves; bounds as documented."""
+    x, params, gout = _inputs(SHAPES[1], 3)
+    xt, pt = _torch(x, "bf16"), _params_t(params)
+    out = rdtail.reference_tail(xt, *pt, eps=EPS)
+    err, rel, bound = rdtail.errors(out, out)
+    assert err == rel == 0.0 and bound == pytest.approx(out.float().abs().max().item() / 64)
+    grads = rdtail.reference_tail_bwd(xt, *pt, _torch(gout, "bf16"), eps=EPS)
+    errs = rdtail.bwd_errors(grads, grads)
+    assert list(errs) == list(rdtail.GRAD_NAMES) and all(e == 0.0 for e, _, _ in errs.values())
