@@ -19,24 +19,38 @@ Phases, each of which fails the run (nonzero exit, no result line):
    bf16 ssim call, which takes the band-matrix path; the convchain shapes
    include the RDResUNet decoder's; the RDNet block tail forward and
    backward at the 21 dense blocks' shapes of the full-width RDResUNet x4
-   at batch 16, in f32 and bf16;
+   at batch 16, in f32 and bf16; the whole Swin block forward (eval and
+   with DropPath keep-scales) and backward at the default SwinIR's blocks
+   at batch 16 ((16, 128, 128, 96), unshifted and shifted), in f32 and
+   bf16; the window attention at those windows (4,096 x 64 x 288) and at
+   the SwinIR-L widths (C 240, 8 heads), masked and unmasked;
 4. serving: ``predict_images`` with the full-width ``ResUNet()`` x4 on 32
    synthetic 128^2 -> 512^2 tiles in f32 and bf16, twice (the first call
    with cuDNN set-up, the second warm), with the kernels' launch counts
    read around each call, and two f32 tiles held against the
    same model on the CPU (plain versions); then the same with the
-   full-width ``RDResUNet()`` x4, one f32 tile held against the CPU;
+   full-width ``RDResUNet()`` x4, one f32 tile held against the CPU; then
+   the full-width ``SwinIR()`` x4 (16 whole-block launches a forward), one
+   f32 tile held against the CPU, and a third call per dtype traced by
+   ``torch.profiler`` (device busy and idle over the whole call); then a
+   model of the SwinIR-L widths (embed 240, 8 heads, '3conv',
+   'nearest+conv', 2 x 2 blocks) through the window-attention kernel, one
+   call per dtype, one f32 tile held against the CPU;
 5. training: the full-width ``ResUNet()`` in train mode, a few steps in
    bf16 and in f32 on 512^2 uint8 patches from ``PatchLoader`` at batch 16
    (device augment, downscale, Poisson noise; ``SSIMLoss(mix=0.8,
    ms=True)``; AdamW), with the launch counts checked per step, then one
    f32 step on 2 samples held against the same step on the CPU; then the
-   same steps with the full-width ``RDResUNet()``;
+   same steps with the full-width ``RDResUNet()`` and ``SwinIR()`` (DropPath
+   live, 16 whole-block forwards and 32 backward launches a step, and one
+   more step per dtype traced by ``torch.profiler``: device time by kernel
+   group and the device's busy share);
 6. train_paired: the full-width ResUNet in bf16 compute, batch 16, over
    the 32 tiles with validation, a ReduceLROnPlateau, weight checkpoints
    and a state directory, for 2 epochs, then resumed by a second call to
    3, with the epoch times and every kernel's launches checked; then the
-   full-width RDResUNet in bf16 for 2 epochs in one call, the same way.
+   full-width RDResUNet and SwinIR in bf16 for 2 epochs in one call each,
+   the same way.
 
 The last two lines are a JSON line of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  This script imports nothing of
@@ -64,7 +78,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 HIDDEN, DEPTH, SCALE, LR_RES, BATCH, TILES = [64, 128, 256, 512, 1024], 3, 4, 128, 16, 32
-SOURCES = ("convchain", "convchain_bwd", "ssimfused", "rdtail")
+SOURCES = ("convchain", "convchain_bwd", "ssimfused", "rdtail", "swinblock")
 # The f32 card output against the same model on the CPU, on the [0, 255]
 # scale: only the order of f32 summation differs, through 45 layers
 # (ResUNet) or 21 dense blocks and 16 decoder layers (RDResUNet).
@@ -97,10 +111,17 @@ BF16_SSIM_TOL = 0.02
 # and the share of the TILES held out for validation (8 of 32: one partial
 # validation batch, and 24 training patches, 2 steps an epoch)
 TP_EPOCHS, TP_VAL_SPLIT = (2, 3), 0.25
-# and RDResUNet's: one call of 2 epochs (train_paired writes a weight
-# checkpoint after each epoch but the last)
+# and RDResUNet's and SwinIR's: one call of 2 epochs (train_paired writes a
+# weight checkpoint after each epoch but the last)
 RD_TP_EPOCHS = (2,)
 STEP_TOL = {"loss": 1e-4, "param": 2.001 * LR_RATE, "stat": 1e-3}
+# The default SwinIR's blocks (embed 96, 6 heads of 16, 8 x 8 windows, MLP
+# 192; 16 blocks, every second one shifted by 4 and masked), the LayerNorm
+# epsilon, and the SwinIR-L widths served through the window attention
+# (the authors' real-world large model, 2 x 2 blocks instead of 9 x 6)
+SWIN_C, SWIN_HEADS, SWIN_WS, SWIN_HIDDEN, SWIN_BLOCKS, SWIN_EPS = 96, 6, 8, 192, 16, 1e-6
+SWINL = dict(embed_dim=240, depths=[2, 2], num_heads=[8, 8], window_size=8, mlp_ratio=2, resi_connection="3conv",
+             upsampler="nearest+conv")
 
 
 def layer_shapes():
@@ -181,6 +202,52 @@ def cuda_ms(fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# Kernel-name fragments of the device-time groups that profile_device sums
+KERNEL_GROUPS = (("swinblock fwd", ("swin_fwd",)), ("swinblock bwd launch 1", ("swin_bwd_rows",)),
+                 ("swinblock bwd launch 2", ("swin_reduce",)), ("winattn", ("swin_winattn",)),
+                 ("ssimfused", ("ssim_",)), ("convchain", ("convchain_",)), ("rdtail", ("rdtail_",)),
+                 ("cuDNN / cuBLAS", ("cudnn", "conv", "gemm", "xmma", "cutlass", "sm90", "sm80", "fft", "winograd",
+                                     "flip_filter", "complex", "region_transform", "wgrad", "dgrad", "fprop")))
+
+
+def profile_device(fn, label):
+    """One call of ``fn`` under torch.profiler (CUDA activity): the device
+    time of each kernel group and of the rest (PyTorch's elementwise,
+    reduction and copy kernels), their sum against the host wall time of
+    the call (the device's busy share; idle is the rest), the 4 largest
+    kernels and the 3 largest of the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - start)
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + evt.self_device_time_total / 1e3
+    if not kernels:
+        print(f"  profile {label}: the profiler recorded no device time (not measured)")
+        return
+    groups, rest = {}, {}
+    for name, ms in kernels.items():
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in name.lower() for k in keys)), "other PyTorch kernels")
+        groups[group] = groups.get(group, 0.0) + ms
+        if group == "other PyTorch kernels":
+            rest[name] = ms
+    busy = sum(kernels.values())
+
+    def largest(d, k):
+        return ", ".join(f"{n[:60]} {ms:.2f} ms" for n, ms in sorted(d.items(), key=lambda kv: -kv[1])[:k])
+
+    print(f"  profile {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%, idle "
+          f"{100 - 100 * busy / wall_ms:.1f}%); by group: "
+          + ", ".join(f"{g} {ms:.2f} ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
+          + f"; largest: {largest(kernels, 4)}; largest of the rest: {largest(rest, 3)}")
 
 
 def bound(nbytes, ops, dtype):
@@ -456,6 +523,190 @@ def check_rdtail(device, gen):
     return totals
 
 
+
+def swin_bound_ms(b, h, w, c, heads, ws, hidden, dtype, backward):
+    """Bound of one whole Swin block on (b, h, w, c).  Bytes: x and the
+    output (forward), or x and the cotangent read and dx written (backward),
+    in the dtype; the parameters read in the dtype and the bias map in f32;
+    their gradients written in f32 (backward).  Operations per token: the
+    products 2 C 3C (qkv) + 2 n C (scores) + 2 n C (p v) + 2 C^2 (proj) +
+    4 C hidden (MLP) forward; the backward has only x, so it recomputes the
+    forward and takes every product twice more (each input's and each
+    weight's gradient; dq, dk, dv and dp): 3 times the forward."""
+    item = torch.empty((), dtype=dtype).element_size()
+    m, n = b * h * w, ws * ws
+    params = 4 * c * c + 2 * c * hidden + 9 * c + hidden
+    ops = float(m) * (8 * c * c + 4 * n * c + 4 * c * hidden)
+    if backward:
+        nbytes = item * (3 * m * c + params) + 4 * (heads * n * n + params + heads * n * n)
+        ops *= 3
+    else:
+        nbytes = item * (2 * m * c + params) + 4 * heads * n * n
+    return (*bound(nbytes, ops, dtype), ops)
+
+
+def winattn_bound_ms(b, h, w, c, heads, ws, dtype):
+    """Bound of the window attention on a (b, h, w, 3c) image: qkv read and
+    the output written in the dtype, the bias map in f32; the scores and
+    p v, 4 n C operations a token."""
+    item = torch.empty((), dtype=dtype).element_size()
+    n = ws * ws
+    return (*bound(item * 4 * b * h * w * c + 4 * heads * n * n, 4.0 * b * h * w * n * c, dtype),
+            4.0 * b * h * w * n * c)
+
+
+def _swin_library_mask(bias, mask, dtype):
+    """SDPA's additive float mask: the bias map (1, heads, n, n), plus the
+    shift mask per window (nW, heads, n, n), in the dtype."""
+    out = bias[None] if mask is None else bias[None] + mask[:, None]
+    return out.to(dtype)
+
+
+def swin_library(x, lp, heads, ws, shift, attn_mask):
+    """The block as one chain of library calls (the yardstick): roll, window
+    partition, F.layer_norm, F.linear, F.scaled_dot_product_attention with
+    the float bias and mask, F.linear, F.layer_norm, F.linear, F.gelu,
+    F.linear; ``lp`` the parameters in the dtype, the linears as (out, in),
+    the scale folded into W_qkv."""
+    from pssr2_tpu_torch.ops import winattn
+
+    b, h, w, c = x.shape
+    n, d = ws * ws, c // heads
+    xr = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+    qkv = F.linear(F.layer_norm(xr, (c,), lp[0], lp[1], SWIN_EPS), lp[2], lp[3])
+    qkv = winattn.windows(qkv, ws).view(b, -1, n, 3, heads, d).permute(3, 0, 1, 4, 2, 5)
+    o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=attn_mask, scale=1.0)
+    o = winattn.unwindows(o.permute(0, 1, 3, 2, 4).reshape(-1, n, c), ws, b, h, w)
+    y = xr + F.linear(o, lp[4], lp[5])
+    out = y + F.linear(F.gelu(F.linear(F.layer_norm(y, (c,), lp[6], lp[7], SWIN_EPS), lp[8], lp[9])), lp[10], lp[11])
+    return torch.roll(out, (shift, shift), (1, 2)) if shift else out
+
+
+def check_swin(device, gen):
+    """Phase 3e: the whole Swin block (row 10) forward, without and with
+    DropPath keep-scales, and its two backward launches against
+    reference_block and reference_block_bwd at the default SwinIR's blocks
+    at batch 16, unshifted and shifted, in f32 and bf16, with times, bounds
+    and the library chain (and its autograd backward); then the window
+    attention (row 11) at those windows and at the SwinIR-L widths, masked
+    and unmasked, against its plain version and SDPA.  Returns per-dtype
+    totals: the block over one SwinIR() forward or backward (8 unshifted
+    and 8 shifted blocks), the window attention over one forward of the
+    SwinIR-L-width model (2 + 2 blocks)."""
+    from pssr2_tpu_torch.ops import swinblock, winattn
+
+    c, heads, ws, hidden = SWIN_C, SWIN_HEADS, SWIN_WS, SWIN_HIDDEN
+    n, scale = ws * ws, (c // heads) ** -0.5
+    shape = (BATCH, LR_RES, LR_RES, c)
+    print(f"phase kernels: swinblock forward (1 launch) and backward (2 launches) vs plain at {shape}, "
+          f"{heads} heads, window {ws}, MLP {hidden}: max abs error (relative) <= bound | ms of kernel, plain, "
+          "library; bound")
+    totals = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tot = {"fwd": _new_totals(), "bwd": _new_totals(), "winattn": _new_totals()}
+        x = torch.randn(*shape, device=device, generator=gen).to(dtype)
+        gout = torch.randn(*shape, device=device, generator=gen).to(dtype)
+        mk = lambda *sz, sc=0.1: sc * torch.randn(*sz, device=device, generator=gen)
+        params = swinblock._fold_scale(
+            (1.0 + mk(c), mk(c), mk(c, 3 * c, sc=c**-0.5), mk(3 * c), mk(c, c, sc=c**-0.5), mk(c), 1.0 + mk(c), mk(c),
+             mk(c, hidden, sc=c**-0.5), mk(hidden), mk(hidden, c, sc=hidden**-0.5), mk(c), mk(heads, n, n, sc=0.5)),
+            scale)
+        keep = (torch.rand(BATCH, device=device, generator=gen) < 0.9).float() / 0.9
+        scales = (keep, keep.flip(0))
+        lib_p = [p.to(dtype) for p in params[:12]]
+        for i in (2, 4, 8, 10):
+            lib_p[i] = lib_p[i].t().contiguous()
+        for shift in (0, ws // 2):
+            mask = winattn._mask_tensor((LR_RES, LR_RES, ws, shift) if shift else None, device)
+            attn_mask = _swin_library_mask(params[12], mask, dtype)
+            for kind, sc in (("fwd", None), ("fwd+scales", scales), ("bwd", scales)):
+                args = (x, params, heads, ws, shift, SWIN_EPS, sc)
+                kw = dict(heads=heads, ws=ws, shift=shift, eps=SWIN_EPS, scales=sc)
+                with torch.no_grad():
+                    if kind == "bwd":
+                        got = swinblock._launch_bwd(x, params, gout, heads, ws, shift, SWIN_EPS, sc)
+                        ref = swinblock.reference_block_bwd(x, params, gout, **kw)
+                        torch.cuda.synchronize()
+                        errs = swinblock.bwd_errors(got, ref)
+                        del got, ref
+                        k_ms = cuda_ms(lambda: swinblock._launch_bwd(x, params, gout, heads, ws, shift, SWIN_EPS, sc))
+                        p_ms = cuda_ms(lambda: swinblock.reference_block_bwd(x, params, gout, **kw), reps=3)
+                    else:
+                        got = swinblock._launch_fwd(*args)
+                        ref = swinblock.reference_block(x, params, **kw)
+                        torch.cuda.synchronize()
+                        errs = {"out": swinblock.errors(got, ref)}
+                        del got, ref
+                        k_ms = cuda_ms(lambda: swinblock._launch_fwd(*args))
+                        p_ms = cuda_ms(lambda: swinblock.reference_block(x, params, **kw), reps=3)
+                        l_ms = cuda_ms(lambda: swin_library(x, lib_p, heads, ws, shift, attn_mask))
+                if kind == "bwd":
+                    if shift:
+                        profile_device(lambda: swinblock._launch_bwd(x, params, gout, heads, ws, shift, SWIN_EPS, sc),
+                                       f"swinblock backward, {str(dtype)[6:]}, shifted block")
+                    xl = x.detach().requires_grad_()
+                    pl = [p.detach().requires_grad_() for p in lib_p]
+                    out = swin_library(xl, pl, heads, ws, shift, attn_mask)
+                    l_ms = cuda_ms(lambda: torch.autograd.grad(out, [xl, *pl], gout, retain_graph=True), reps=3)
+                    del out
+                ok = all(e <= lim for e, _, lim in errs.values())
+                b_ms, b_by, ops = swin_bound_ms(*shape, heads, ws, hidden, dtype, kind == "bwd")
+                print(
+                    f"  {str(dtype)[6:]:8s} {kind:10s} shift {shift}: "
+                    + " ".join(f"{k} {e:.3g} (rel {r:.2g}) <= {b:.3g}" for k, (e, r, b) in errs.items())
+                    + f" | {k_ms:.4f} {p_ms:.4f} {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                    f"{ops / k_ms / 1e9:.2f} TFLOP/s" + ("" if ok else "  <-- DISAGREES")
+                )
+                if not ok:
+                    raise RuntimeError(f"swinblock {kind} disagrees with its plain version (shift {shift}): {errs}")
+                if kind != "fwd+scales":
+                    _add(tot[kind], SWIN_BLOCKS // 2, k_ms, p_ms, l_ms, b_ms, b_by, ops,
+                         max(e for e, _, _ in errs.values()))
+        del x, gout
+
+        # the window attention: the default SwinIR's windows, then the SwinIR-L widths (its main path)
+        for wc, wheads, count in ((c, heads, 0), (SWINL["embed_dim"], SWINL["num_heads"][0], sum(SWINL["depths"]) // 2)):
+            qkv = torch.randn(BATCH, LR_RES, LR_RES, 3 * wc, device=device, generator=gen).to(dtype)
+            bias = 0.5 * torch.randn(wheads, n, n, device=device, generator=gen)
+            wscale = (wc // wheads) ** -0.5
+            for shift in (0, ws // 2):
+                spec = (LR_RES, LR_RES, ws, shift) if shift else None
+                mask = winattn._mask_tensor(spec, device)
+                with torch.no_grad():
+                    got = winattn._launch(qkv, bias, mask, wscale, wheads, ws, ws)
+                    ref = winattn.reference_window_attention_2d(qkv, bias, mask, wscale, wheads, ws)
+                    torch.cuda.synchronize()
+                    err = (got.float() - ref.float()).abs().max().item()
+                    lim = winattn.TOLERANCE[dtype] * ref.float().abs().max().item()
+                    del got, ref
+                    k_ms = cuda_ms(lambda: winattn._launch(qkv, bias, mask, wscale, wheads, ws, ws))
+                    p_ms = cuda_ms(lambda: winattn.reference_window_attention_2d(qkv, bias, mask, wscale, wheads, ws),
+                                   reps=3)
+                    q, k, v = (t.contiguous() for t in winattn.split_qkv(winattn.windows(qkv, ws), wheads))
+                    lib_mask = _swin_library_mask(bias, mask, dtype)
+                    if mask is not None:
+                        q, k, v = (t.view(BATCH, -1, *t.shape[1:]) for t in (q, k, v))
+                    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask, scale=wscale))
+                    del q, k, v
+                b_ms, b_by, ops = winattn_bound_ms(BATCH, LR_RES, LR_RES, wc, wheads, ws, dtype)
+                ok = err <= lim
+                print(f"  {str(dtype)[6:]:8s} winattn C {wc} heads {wheads} shift {shift}: out {err:.3g} <= {lim:.3g} "
+                      f"| {k_ms:.4f} {p_ms:.4f} {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                      f"{ops / k_ms / 1e9:.2f} TFLOP/s" + ("" if ok else "  <-- DISAGREES"))
+                if not ok:
+                    raise RuntimeError(f"winattn disagrees with its plain version (C {wc}, shift {shift}): {err} > {lim}")
+                if count:
+                    _add(tot["winattn"], count, k_ms, p_ms, l_ms, b_ms, b_by, ops, err)
+            del qkv
+        totals[dtype] = tot
+        for kind, t in tot.items():
+            what = "the SwinIR-L-width forward's 4 blocks" if kind == "winattn" else \
+                f"one SwinIR() {'forward' if kind == 'fwd' else 'backward'}'s {t['layers']} blocks"
+            print(f"  {dtype}: {'swinblock ' + kind if kind != 'winattn' else kind} over {what}: kernel "
+                  f"{t['ms']:.3f} ms ({t['ops'] / t['ms'] / 1e9:.2f} TFLOP/s), plain {t['plain_ms']:.3f} ms, library "
+                  f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms")
+    return totals
+
 def _ssim_case(device, gen, kind, h, win=11, divisor=1.0):
     """One SSIM kernel pair (forward, backward) against its plain version
     on (BATCH, 1, h, h) f32 maps: errors, and times of the kernel, the
@@ -604,37 +855,47 @@ def write_tiles(root, seed):
         tiff.imwrite(root / f"tile_{i:02d}.tif", np.clip(img, 0, 255).astype(np.uint8))
 
 
-MODELS = ("ResUNet", "RDResUNet")
+MODELS = ("ResUNet", "RDResUNet", "SwinIR")
 
 
 @functools.cache
 def _state(kind, seed):
     """The seeded weights of the full-width model ``kind`` (CPU tensors)."""
-    from pssr2_tpu_torch.weights import params_from_jax, seeded_jax_params, seeded_rdresunet_params
+    from pssr2_tpu_torch.weights import (params_from_jax, seeded_jax_params, seeded_rdresunet_params,
+                                         seeded_swinir_params)
 
     if kind == "ResUNet":
         return params_from_jax(seeded_jax_params(HIDDEN, DEPTH, scale=SCALE, seed=seed))
-    return params_from_jax(seeded_rdresunet_params(scale=SCALE, seed=seed))
+    if kind == "RDResUNet":
+        return params_from_jax(seeded_rdresunet_params(scale=SCALE, seed=seed))
+    extra = SWINL if kind == "SwinIR-L" else {}
+    return params_from_jax(seeded_swinir_params(image_size=LR_RES, scale=SCALE, **extra, seed=seed))
 
 
 def _model(state, dtype, device, kind="ResUNet", train=True):
     """The full-width model ``kind`` with ``state`` loaded, in train mode
     unless ``train`` is False."""
-    from pssr2_tpu_torch.models import RDResUNet, ResUNet
+    from pssr2_tpu_torch.models import RDResUNet, ResUNet, SwinIR
 
     if kind == "ResUNet":
         model = ResUNet(hidden=HIDDEN, depth=DEPTH, scale=SCALE, dtype=dtype, device=device)
-    else:
+    elif kind == "RDResUNet":
         model = RDResUNet(scale=SCALE, dtype=dtype, device=device)
+    else:
+        model = SwinIR(image_size=LR_RES, scale=SCALE, **(SWINL if kind == "SwinIR-L" else {}), dtype=dtype,
+                       device=device)
     model.load_state_dict(state, strict=True)
     return model.train() if train else model.eval()
 
 
-def run_slice(device, seed, card, root, tmp, kind):
+def run_slice(device, seed, card, root, tmp, kind, calls=("first", "second")):
     """Phase 4: predict_images with the full-width model ``kind`` in f32 and
-    bf16, its launches checked exactly; the raw output of CPU_TILES[kind]
-    f32 tiles held against the same model on the CPU.  Returns the launches
-    of each run, in the order of COUNTERS."""
+    bf16, one call per entry of ``calls`` ("traced": under profile_device,
+    whose print splits the call's wall time into device busy and idle), its
+    launches checked exactly;
+    the raw output of CPU_TILES[kind] f32 tiles held against the same model
+    on the CPU.  Returns the launches of each run, in the order of
+    COUNTERS."""
     from pssr2_tpu_torch import Poisson
     from pssr2_tpu_torch.data import ImageDataset, tiff
     from pssr2_tpu_torch.predict import predict_images
@@ -646,8 +907,8 @@ def run_slice(device, seed, card, root, tmp, kind):
     if dataset.is_lr or len(dataset) != TILES:
         raise RuntimeError(f"dataset: is_lr={dataset.is_lr}, {len(dataset)} items")
     batches = -(-TILES // BATCH)
-    # per forward: the model's convchain (and rdtail) forwards, nothing else
-    per_fwd = tuple(n if c in ("convchain_fwd", "rdtail_fwd") else 0
+    # per forward: the model's convchain, rdtail, swinblock or winattn forwards, nothing else
+    per_fwd = tuple(n if c in ("convchain_fwd", "rdtail_fwd", "swinblock_fwd", "winattn") else 0
                     for c, n in zip(COUNTERS, _per_step(train=False, kind=kind)))
     want = tuple(batches * n for n in per_fwd)
     n_cpu = CPU_TILES[kind]
@@ -656,12 +917,19 @@ def run_slice(device, seed, card, root, tmp, kind):
         model = _model(state, dtype, device, kind, train=False)
         out_dir = Path(tmp, f"preds_{kind}_{str(dtype)[6:]}")
         launches[dtype] = (0,) * len(COUNTERS)
-        for call in ("first", "second"):  # the first with cuDNN set-up, the second warm
+        for call in calls:  # the first with cuDNN set-up, the second warm, "traced" under torch.profiler
             np.random.seed(seed)
             torch.cuda.synchronize()
             _reset_counts()
             start = time.perf_counter()
-            predict_images(model, dataset, device=device, batch_size=BATCH, out_dir=str(out_dir))
+
+            def serve():
+                predict_images(model, dataset, device=device, batch_size=BATCH, out_dir=str(out_dir))
+
+            if call == "traced":
+                profile_device(serve, f"serving {kind} {dtype} (the whole call: tile loading and writing included)")
+            else:
+                serve()
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - start
             counts = _counts()
@@ -705,27 +973,29 @@ def run_slice(device, seed, card, root, tmp, kind):
 
 # the launch counters, in the order of _counts()
 COUNTERS = ("convchain_fwd", "convchain_bwd", "ssim_fwd", "ssim_bwd", "ssim_pool_fwd", "ssim_pool_bwd",
-            "ssim_l0_fwd", "ssim_l0_bwd", "rdtail_fwd", "rdtail_bwd")
+            "ssim_l0_fwd", "ssim_l0_bwd", "rdtail_fwd", "rdtail_bwd", "swinblock_fwd", "swinblock_bwd", "winattn")
 # f32 tiles of the serving phase held against the CPU, per model
-CPU_TILES = {"ResUNet": 2, "RDResUNet": 1}
+CPU_TILES = {"ResUNet": 2, "RDResUNet": 1, "SwinIR": 1, "SwinIR-L": 1}
 
 
 def _counts():
-    from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused
+    from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused, swinblock, winattn
 
     return (convchain.launches, convchain.bwd_launches, ssimfused.fwd_launches, ssimfused.bwd_launches,
             ssimfused.pool_fwd_launches, ssimfused.pool_bwd_launches, ssimfused.l0_fwd_launches,
-            ssimfused.l0_bwd_launches, rdtail.launches, rdtail.bwd_launches)
+            ssimfused.l0_bwd_launches, rdtail.launches, rdtail.bwd_launches, swinblock.launches,
+            swinblock.bwd_launches, winattn.launches)
 
 
 def _reset_counts():
-    from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused
+    from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused, swinblock, winattn
 
     convchain.launches = convchain.bwd_launches = 0
     ssimfused.fwd_launches = ssimfused.bwd_launches = 0
     ssimfused.pool_fwd_launches = ssimfused.pool_bwd_launches = 0
     ssimfused.l0_fwd_launches = ssimfused.l0_bwd_launches = 0
     rdtail.launches = rdtail.bwd_launches = 0
+    swinblock.launches = swinblock.bwd_launches = winattn.launches = 0
 
 
 @functools.cache
@@ -733,17 +1003,26 @@ def _per_step(train=True, metrics=False, kind="ResUNet"):
     """Launches of one step of the full-width model with the MS-SSIM loss:
     its convchain forwards (ResUNet 36, RDResUNet 16) and 2 backward
     launches a layer; RDResUNet's 21 rdtail forwards and 2 backward
-    launches each; the loss's level 0, three pool levels and last level,
-    forward (1 launch each) and backward (2 each); the metrics add a
-    single-scale SSIM forward.  A validation step runs the forwards only."""
+    launches each; SwinIR's 16 swinblock forwards and 2 backward launches
+    each, or the SwinIR-L widths' 4 winattn forwards (served only); the
+    loss's level 0, three pool levels and last level, forward (1 launch
+    each) and backward (2 each); the metrics add a single-scale SSIM
+    forward.  A validation step runs the forwards only."""
+    n = dict.fromkeys(COUNTERS, 0)
     if kind == "ResUNet":
-        n_layers, n_tails = sum(e + p for *_, e, p in layer_shapes()), 0
-    else:
+        n["convchain_fwd"] = sum(e + p for *_, e, p in layer_shapes())
+    elif kind == "RDResUNet":
         convs, tails = rd_shapes()
-        n_layers, n_tails = sum(e + p for *_, e, p in convs), len(tails)
-    fwd = (n_layers, 0, 1 + int(metrics), 0, 3, 0, 1, 0, n_tails, 0)
-    bwd = (0, 2 * n_layers, 0, 2, 0, 6, 0, 2, 0, 2 * n_tails)
-    return tuple(f + b * int(train) for f, b in zip(fwd, bwd))
+        n["convchain_fwd"], n["rdtail_fwd"] = sum(e + p for *_, e, p in convs), len(tails)
+    elif kind == "SwinIR":
+        n["swinblock_fwd"] = SWIN_BLOCKS
+    else:
+        n["winattn"] = sum(SWINL["depths"])
+    n.update(ssim_fwd=1 + int(metrics), ssim_pool_fwd=3, ssim_l0_fwd=1)
+    if train:
+        n.update(convchain_bwd=2 * n["convchain_fwd"], ssim_bwd=2, ssim_pool_bwd=6, ssim_l0_bwd=2,
+                 rdtail_bwd=2 * n["rdtail_fwd"], swinblock_bwd=2 * n["swinblock_fwd"])
+    return tuple(n[c] for c in COUNTERS)
 
 
 def _train_parts(seed, kind="ResUNet"):
@@ -799,6 +1078,14 @@ def run_train(device, seed, card, root, kind):
                 if delta != per_step or not np.isfinite(losses[-1]):
                     raise RuntimeError(f"step {k}: launches {delta} (want {per_step}), loss {losses[-1]}")
                 k += 1
+        if kind == "SwinIR":  # one more step, traced
+            before = _counts()
+            profile_device(lambda: step(model, optimizer, hr_u8, None, generator, LR_RATE, n_valid, False),
+                           f"one SwinIR training step, {str(dtype)[6:]}")
+            delta = tuple(a - b for a, b in zip(_counts(), before))
+            if delta != per_step:
+                raise RuntimeError(f"traced step: launches {delta} (want {per_step})")
+            k += 1
         # one more step with the metrics: a second SSIM forward
         before = _counts()
         loss, (mse, ssim_val), _ = step(model, optimizer, hr_u8, None, generator, LR_RATE, n_valid, True)
@@ -990,13 +1277,16 @@ def _capture_stdout(fn):
     return text.splitlines()
 
 
-def kernels_line(fwd, bwd, ssim, rd, launches):
+def kernels_line(fwd, bwd, ssim, rd, swin, launches):
     """The per-kernel entries of the JSON line.  ``launches[dtype]`` holds
     the counts of every main path in that dtype (serving, the training
-    steps and train_paired of both models), in the order of COUNTERS; the
+    steps and train_paired of every model), in the order of COUNTERS; the
     f32 SSIM kernels count the runs of both dtypes.  The convchain times are
     those of one ResUNet forward or backward (36 layers), the rdtail times
-    those of one RDResUNet forward or backward (21 tails)."""
+    those of one RDResUNet forward or backward (21 tails), the swinblock
+    times those of one SwinIR() forward or backward (16 blocks), the
+    winattn times those of one forward of the SwinIR-L-width model (4
+    blocks)."""
     def total(name, dtype=None):
         i = COUNTERS.index(name)
         return sum(c[i] for dt, c in launches.items() if dtype in (None, dt))
@@ -1016,6 +1306,12 @@ def kernels_line(fwd, bwd, ssim, rd, launches):
             tot = tots[kind]
             entries.append((f"rdtail_{kind}[{str(dtype)[6:]}]", "rdtail", f"rdtail.py:{line}",
                             total(f"rdtail_{kind}", dtype),
+                            dict(tot, bound_by=max(tot["bound_by"], key=tot["bound_by"].get))))
+    for name, kind, replaces in (("swinblock_fwd", "fwd", "swinblock.py:329"), ("swinblock_bwd", "bwd", "swinblock.py:561"),
+                                 ("winattn", "winattn", "winattn.py:121")):
+        for dtype, tots in swin.items():
+            tot = tots[kind]
+            entries.append((f"{name}[{str(dtype)[6:]}]", "swinblock", replaces, total(name, dtype),
                             dict(tot, bound_by=max(tot["bound_by"], key=tot["bound_by"].get))))
     kernels = []
     for name, source, replaces, n, tot in entries:
@@ -1071,6 +1367,7 @@ def main():
     bwd = check_bwd(device, gen)
     ssim = check_ssim(device, gen)
     rd = check_rdtail(device, gen)
+    swin = check_swin(device, gen)
     launches = {dtype: (0,) * len(COUNTERS) for dtype in (torch.float32, torch.bfloat16)}
 
     def add(dtype, counts):
@@ -1081,16 +1378,20 @@ def main():
         root.mkdir()
         write_tiles(root, args.seed)
         for kind in MODELS:
-            for dtype, counts in run_slice(device, args.seed, card, root, tmp, kind).items():
+            calls = ("first", "second", "traced") if kind == "SwinIR" else ("first", "second")
+            for dtype, counts in run_slice(device, args.seed, card, root, tmp, kind, calls).items():
                 add(dtype, counts)
+        for dtype, counts in run_slice(device, args.seed, card, root, tmp, "SwinIR-L", calls=("first",)).items():
+            add(dtype, counts)
         for kind in MODELS:
             for dtype, counts in run_train(device, args.seed, card, root, kind).items():
                 add(dtype, counts)
         compare_cpu_step(device, args.seed, root)
         add(torch.bfloat16, run_train_paired(device, args.seed, card, root, tmp, "ResUNet", TP_EPOCHS))
-        add(torch.bfloat16, run_train_paired(device, args.seed, card, root, tmp, "RDResUNet", RD_TP_EPOCHS))
+        for kind in ("RDResUNet", "SwinIR"):
+            add(torch.bfloat16, run_train_paired(device, args.seed, card, root, tmp, kind, RD_TP_EPOCHS))
 
-    print(json.dumps({"kernels": kernels_line(fwd, bwd, ssim, rd, launches)}))
+    print(json.dumps({"kernels": kernels_line(fwd, bwd, ssim, rd, swin, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0
 

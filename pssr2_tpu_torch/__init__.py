@@ -5,8 +5,8 @@ counterpart at the same path under ``pssr2_tpu``.  This package imports
 torch, numpy, scipy and the standard library only: nothing of JAX and
 nothing of ``pssr2_tpu``.
 
-Device rule: entry points (``ResUNet(...)``, ``RDResUNet(...)``, ``predict_images``,
-``train_paired``) run on
+Device rule: entry points (``ResUNet(...)``, ``RDResUNet(...)``,
+``SwinIR(...)``, ``predict_images``, ``train_paired``) run on
 ``cuda`` unless the caller passes ``device="cpu"``.  With no card and no
 explicit CPU request they raise; they never fall back to the CPU.
 

@@ -19,7 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.rdtail import _layernorm, fused_rd_tail
+from ..ops.blockmath import _layernorm
+from ..ops.rdtail import fused_rd_tail
 from .blocks import conv_nhwc
 
 

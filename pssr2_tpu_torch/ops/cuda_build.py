@@ -5,7 +5,7 @@ Each source exposes plain ``extern "C"`` launch functions (pointers, sizes,
 the stream; the return value is the ``cudaGetLastError()`` code), so the
 build includes no PyTorch header and takes seconds.  The library lands in
 ``pssr2_tpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed
-by the source and the flags, so a stale build is never loaded.  Nothing is
+by :func:`digest`, so a stale build is never loaded.  Nothing is
 built when a module is imported: only when a kernel is first launched.
 """
 
@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -34,14 +35,21 @@ def _nvcc() -> str:
     return nvcc
 
 
+def digest(src: Path) -> str:
+    """Key of a build: the source, the ``csrc`` headers it includes
+    (``#include "..."``) and the flags."""
+    headers = [src.parent / h for h in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)]
+    data = b"".join(f.read_bytes() for f in [src, *headers]) + " ".join(NVCC_FLAGS).encode()
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
 @functools.cache
 def build(name: str):
     """Compile ``csrc/<name>.cu`` (once per process and source) and return
     ``(path, seconds, ptxas_log)``; the log holds ``-Xptxas -v``'s
     registers, shared memory and spills for each kernel."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = BUILD_DIR / f"lib{name}-{digest(src)}.so"
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -3,12 +3,9 @@ flattened rows, and its VJP.
 
 Counterpart: pssr2_tpu/ops/pallas/rdtail.py (``fused_rd_tail`` at 253
 with its custom VJP ``_tail_fn`` at 230, kernels ``_tail_kernel`` at 109
-and ``_tail_bwd_kernel`` at 117, oracle ``reference_tail`` at 218), and
-the helpers it takes from pssr2_tpu/ops/pallas/swinblock.py (``_erf_f32``,
-``_gelu_exact``, ``_gelu_fast``, ``_layernorm``, ``_matmul`` at 60-130;
-``_dgelu_fast``, ``_dgelu_exact``, ``_layernorm_bwd``, ``_matmul_dx``,
-``_matmul_dw`` at 441-496), copied here so that the port imports nothing
-of the JAX package.
+and ``_tail_bwd_kernel`` at 117, oracle ``reference_tail`` at 218).  The
+GELU, LayerNorm and product helpers it shares with the Swin block are in
+``ops/blockmath.py``.
 
 The kernels are ``csrc/rdtail.cu``, built by ``ops/cuda_build.py``: the
 forward is one launch (the ``inter``-wide intermediate stays on chip); the
@@ -24,10 +21,22 @@ versions of the same functions.  A CUDA tensor never falls back to them.
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from . import cuda_build
+from .blockmath import (  # noqa: F401  (the GELU helpers are part of this module's surface)
+    _dgelu,
+    _dgelu_exact,
+    _dgelu_fast,
+    _gelu,
+    _gelu_exact,
+    _gelu_fast,
+    _layernorm,
+    _layernorm_bwd,
+    _matmul,
+    _matmul_dw,
+    _matmul_dx,
+)
 
 # Launches of the CUDA kernels in this process (the plain versions do not
 # count): the forward adds 1 per call, the backward 2 (its two launches).
@@ -59,125 +68,6 @@ BWD_TOLERANCE = {
 }
 GRAD_NAMES = ("dx", "dlns", "dlnb", "dw1", "db1", "dw2", "db2")
 
-# XLA's erf rational on [-4, 4] (pssr2_tpu/ops/pallas/swinblock.py:53-58)
-_ERF_ALPHA = (-2.72614225801306e-10, 2.77068142495902e-08, -2.10102402082508e-06,
-              -5.69250639462346e-05, -7.34990630326855e-04, -2.95459980854025e-03,
-              -1.60960333262415e-02)
-_ERF_BETA = (-1.45660718464996e-05, -2.13374055278905e-04, -1.68282697438203e-03,
-             -7.37332916720468e-03, -1.42647390514189e-02)
-# gelu(x) = 0.5x + x^2 S(x^2) on [-4, 4] (swinblock.py:86-93), and S'
-_GELU_S = (0.398714550644521, -0.0659565049580834, 0.009545222431626374,
-           -0.0010175056451836898, 7.648234117739626e-05,
-           -3.7887493429360835e-06, 1.0968829398043447e-07,
-           -1.3937041721878255e-09)
-_GELU_SP = tuple(k * c for k, c in enumerate(_GELU_S))[1:]
-_SQRT_HALF = float(np.float32(np.sqrt(0.5)))
-_INV_SQRT_2PI = float(np.float32(1.0 / np.sqrt(2.0 * np.pi)))
-
-
-def _is_fast(dtype):
-    """The polynomial GELU for bf16 compute, the exact one for f32
-    (the JAX package's ``FAST_GELU = "auto"``)."""
-    return dtype == torch.bfloat16
-
-
-def _erf_f32(x):
-    xc = x.clamp(-4.0, 4.0)
-    x2 = xc * xc
-
-    def poly(cs):
-        a = torch.full_like(x2, cs[0])
-        for c in cs[1:]:
-            a = a * x2 + c
-        return a
-
-    return xc * poly(_ERF_ALPHA) / poly(_ERF_BETA)
-
-
-def _gelu_exact(x):
-    xf = x.float()
-    return (0.5 * xf * (1.0 + _erf_f32(xf * _SQRT_HALF))).to(x.dtype)
-
-
-def _poly_u(u, cs):
-    acc = torch.full_like(u, cs[-1])
-    for c in cs[-2::-1]:
-        acc = acc * u + c
-    return acc
-
-
-def _gelu_fast(x):
-    xf = x.float()
-    xc = xf.clamp(-4.0, 4.0)
-    u = xc * xc
-    y = 0.5 * xc + u * _poly_u(u, _GELU_S)
-    y = torch.where(xf > 4.0, xf, torch.where(xf < -4.0, torch.zeros_like(y), y))
-    return y.to(x.dtype)
-
-
-def _dgelu_fast(x):
-    xf = x.float()
-    xc = xf.clamp(-4.0, 4.0)
-    u = xc * xc
-    g = 0.5 + 2.0 * xc * (_poly_u(u, _GELU_S) + u * _poly_u(u, _GELU_SP))
-    return torch.where(xf > 4.0, torch.ones_like(g), torch.where(xf < -4.0, torch.zeros_like(g), g))
-
-
-def _dgelu_exact(x):
-    xf = x.float()
-    phi = torch.exp(-0.5 * xf * xf) * _INV_SQRT_2PI
-    return 0.5 * (1.0 + _erf_f32(xf * _SQRT_HALF)) + xf * phi
-
-
-def _stats(xf):
-    """f32 row mean and fast variance max(0, E[x^2] - mu^2), keepdim."""
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-    return mu, var
-
-
-def _layernorm(x, scale, bias, eps):
-    """flax nnx.LayerNorm semantics: scale and bias rounded to x's dtype
-    first, f32 statistics, the output rounded to x's dtype."""
-    dt = x.dtype
-    mu, var = _stats(x.float())
-    mul = torch.rsqrt(var + eps) * scale.to(dt).float()
-    return ((x.float() - mu) * mul + bias.to(dt).float()).to(dt)
-
-
-def _matmul(x, w, b):
-    """nnx.Linear semantics: w in x's dtype, f32 accumulation, the product
-    rounded to x's dtype, then the bias added in x's dtype."""
-    dt = x.dtype
-    return (x.float() @ w.to(dt).float()).to(dt) + b.to(dt)
-
-
-def _matmul_dx(g, w):
-    """g @ w^T under the same policy (no bias)."""
-    return (g.float() @ w.to(g.dtype).float().t()).to(g.dtype)
-
-
-def _matmul_dw(x, g):
-    """x^T @ g over the rows, in f32."""
-    return x.float().t() @ g.float()
-
-
-def _layernorm_bwd(x, gamma, eps, dy):
-    """VJP of :func:`_layernorm` at ``x``: (dx, dgamma, dbeta), the
-    statistics recomputed alike."""
-    xf = x.float()
-    mu, var = _stats(xf)
-    rstd = torch.rsqrt(var + eps)
-    xhat = (xf - mu) * rstd
-    dyf = dy.float()
-    dgamma = (dyf * xhat).sum(dim=0)
-    dbeta = dyf.sum(dim=0)
-    dxhat = dyf * gamma.to(x.dtype).float()
-    m1 = dxhat.mean(dim=-1, keepdim=True)
-    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
-    return (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype), dgamma, dbeta
-
-
 def reference_tail(x, lns, lnb, w1, b1, w2, b2, *, eps):
     """Plain PyTorch version of the forward kernel (any device).
 
@@ -185,9 +75,7 @@ def reference_tail(x, lns, lnb, w1, b1, w2, b2, *, eps):
     b1: (inter,); w2: (inter, G); b2: (G,).  Returns (M, G) in x's dtype.
     The GELU is the polynomial one for bf16 and the exact one for f32."""
     h = _layernorm(x, lns, lnb, eps)
-    z = _matmul(h, w1, b1)
-    z = _gelu_fast(z) if _is_fast(z.dtype) else _gelu_exact(z)
-    return _matmul(z, w2, b2)
+    return _matmul(_gelu(_matmul(h, w1, b1)), w2, b2)
 
 
 def reference_tail_bwd(x, lns, lnb, w1, b1, w2, b2, g, *, eps):
@@ -199,14 +87,12 @@ def reference_tail_bwd(x, lns, lnb, w1, b1, w2, b2, g, *, eps):
     dt = x.dtype
     h = _layernorm(x, lns, lnb, eps)
     z1 = _matmul(h, w1, b1)
-    fast = _is_fast(dt)
-    zg = _gelu_fast(z1) if fast else _gelu_exact(z1)
+    zg = _gelu(z1)
     g = g.to(dt)
     dw2 = _matmul_dw(zg, g)
     db2 = g.float().sum(dim=0)
     dz = _matmul_dx(g, w2)
-    dgel = _dgelu_fast(z1) if fast else _dgelu_exact(z1)
-    dz1 = (dz.float() * dgel).to(dt)
+    dz1 = (dz.float() * _dgelu(z1)).to(dt)
     dw1 = _matmul_dw(h, dz1)
     db1 = dz1.float().sum(dim=0)
     dh = _matmul_dx(dz1, w1)

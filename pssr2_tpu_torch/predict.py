@@ -49,8 +49,8 @@ def predict_images(
 
     Args:
         model : Any model of the port (``models.ResUNet``,
-            ``models.RDResUNet``) to receive low-resolution images; moved
-            to ``device``.
+            ``models.RDResUNet``, ``models.SwinIR``) to receive
+            low-resolution images; moved to ``device``.
 
         dataset : Dataset to load low-resolution images from.
 

@@ -230,8 +230,9 @@ def train_paired(
     (reference: pssr/train.py:19-166; same control surface).
 
     Args:
-        model : Any model of the port (``models.ResUNet``, ``models.RDResUNet``;
-            a ``torch.nn.Module``) to train; moved to ``device``.
+        model : Any model of the port (``models.ResUNet``, ``models.RDResUNet``,
+            ``models.SwinIR``; a ``torch.nn.Module``) to train; moved to
+            ``device``.
 
         dataset : Paired image dataset to load data from.
 

@@ -4,11 +4,14 @@ The JAX package saves weights as a flat ``.npz`` (pssr2_tpu/checkpoint.py:
 ``save_weights`` / ``_flatten_state``), keyed by module path:
 ``"encoder/0/convs/1/kernel"``, ``"encoder/0/norms/1/var"``,
 ``"norm/scale"``, ``"reconstruction/pre/bias"``,
-``"encoder/stages/0/blocks/1/layers/fc1/kernel"``, ...  The port's
+``"encoder/stages/0/blocks/1/layers/fc1/kernel"``,
+``"layers/0/residual_group/blocks/1/attn/qkv/kernel"``, ...  The port's
 ``state_dict`` uses the reference ``.pth`` names (pssr2_tpu/torch_import.py:
-171-247): ``encoder.0.conv.3.weight``, ``encoder.0.conv.4.running_var``,
-``norm.weight``, ``reconstruction.pre.bias``,
-``encoder.dense_stages.0.0.dense_block1.layers.layers.2.weight``, ...
+106-161, 171-247): ``encoder.0.conv.3.weight``,
+``encoder.0.conv.4.running_var``, ``norm.weight``,
+``reconstruction.pre.bias``,
+``encoder.dense_stages.0.0.dense_block1.layers.layers.2.weight``,
+``layers.0.residual_group.blocks.1.attn.qkv.weight``, ...
 """
 
 import re
@@ -29,6 +32,18 @@ _TRANSITION = re.compile(r"encoder/transitions/(\d+)/(0/norm|1)/(\w+)")
 _GAMMA = re.compile(r"encoder/stages/(\d+)/blocks/(\d+)/gamma")
 _LAYER = re.compile(r"encoder/stages/(\d+)/blocks/(\d+)/layers/(dw|fc1|fc2|ese/fc|norm/norm)/(\w+)")
 _LAYER_POS = {"dw": "0", "norm/norm": "1", "fc1": "2", "fc2": "4", "ese/fc": "5.fc"}
+# SwinIR (pssr2_tpu/torch_import.py:106-161 for the .pth names): the blocks'
+# norms, linears and bias tables keep their paths; the RSTB and body convs,
+# a list in JAX, are one conv ('1conv') or a Sequential at 0, 2, 4 ('3conv')
+_SWIN_BLOCK = re.compile(
+    r"layers/(\d+)/residual_group/blocks/(\d+)/(norm1|norm2|attn/qkv|attn/proj|mlp/fc1|mlp/fc2)/(\w+)")
+_SWIN_TABLE = re.compile(r"layers/(\d+)/residual_group/blocks/(\d+)/attn/relative_position_bias_table")
+_SWIN_CONVS = re.compile(r"(layers/(\d+)/convs|conv_after_body)/(\d)/(\w+)")
+_SWIN_HEADS = {"conv_first": "conv_first", "conv_before_upsample": "conv_before_upsample.0",
+               "upsample_direct": "upsample.0", "conv_up1": "conv_up1", "conv_up2": "conv_up2", "conv_hr": "conv_hr",
+               "conv_last": "conv_last"}
+_SWIN_HEAD = re.compile(r"(conv_first|conv_before_upsample|upsample_direct|conv_up1|conv_up2|conv_hr|conv_last)/(\w+)")
+_SWIN_UPSAMPLE = re.compile(r"upsample/(\d+)/(\w+)")
 
 
 def _dense_block(stage: str, block: str) -> str:
@@ -37,8 +52,34 @@ def _dense_block(stage: str, block: str) -> str:
     return f"encoder.dense_stages.{stage}.{0 if stage == '0' else 2}.dense_block{block}"
 
 
-def _torch_key(key: str) -> str:
-    if m := _BLOCK.fullmatch(key):
+def _torch_key(key: str, three_conv: bool = False) -> str:
+    """The port's name of JAX key ``key``; ``three_conv``: the SwinIR's
+    residual convs are '3conv' Sequentials."""
+    if key == "absolute_pos_embed":
+        return key
+    if m := _SWIN_BLOCK.fullmatch(key):
+        layer, block, part, leaf = m.groups()
+        names = _LN if part.startswith("norm") else _CONV
+        if leaf in names:
+            return f"layers.{layer}.residual_group.blocks.{block}.{part.replace('/', '.')}.{names[leaf]}"
+    elif _SWIN_TABLE.fullmatch(key):
+        return key.replace("/", ".")
+    elif m := _SWIN_CONVS.fullmatch(key):
+        part, layer, j, leaf = m.groups()
+        if leaf in _CONV:
+            base = f"layers.{layer}.conv" if layer is not None else "conv_after_body"
+            return f"{base}.{2 * int(j)}.{_CONV[leaf]}" if three_conv else f"{base}.{_CONV[leaf]}"
+    elif m := _SWIN_HEAD.fullmatch(key):
+        name, leaf = m.groups()
+        if leaf in _CONV:
+            return f"{_SWIN_HEADS[name]}.{_CONV[leaf]}"
+    elif m := _SWIN_UPSAMPLE.fullmatch(key):
+        i, leaf = m.groups()
+        if leaf in _CONV:
+            return f"upsample.{2 * int(i)}.{_CONV[leaf]}"
+    elif key.startswith("patch_embed/norm/") and key.rsplit("/", 1)[1] in _LN:
+        return f"patch_embed.norm.{_LN[key.rsplit('/', 1)[1]]}"
+    elif m := _BLOCK.fullmatch(key):
         part, i, kind, j, leaf = m.groups()
         if kind == "convs" and leaf in _CONV:
             return f"{part}.{i}.conv.{3 * int(j)}.{_CONV[leaf]}"
@@ -73,8 +114,8 @@ def _torch_key(key: str) -> str:
         if leaf in names:
             return f"{_dense_block(stage, block)}.layers.layers.{_LAYER_POS[part]}.{names[leaf]}"
     raise KeyError(
-        f"JAX weight {key!r} has no place in the port's ResUNet or RDResUNet "
-        "(ResUNetA, RDResUNetA, the PSP pooling variants and SwinIR are not ported yet)"
+        f"JAX weight {key!r} has no place in the port's ResUNet, RDResUNet or SwinIR "
+        "(ResUNetA, RDResUNetA and the PSP pooling variants are not ported yet)"
     )
 
 
@@ -84,17 +125,23 @@ def params_from_jax(flat) -> dict:
     arrays, e.g. ``np.load`` of a ``save_weights`` file).  HWIO conv
     kernels become OIHW.
 
+    Linear kernels (in, out) become (out, in); SwinIR's bias tables stay
+    (n_bias, heads).
+
     Any subset of those keys maps, so the same call carries the JAX
     gradients (the flattened ``nnx.grad`` state: parameters only, named as
     the parameters) to the port's parameter names and layout, and the
     running statistics of a model after a train step, for comparing the
-    two packages key by key."""
+    two packages key by key.  A SwinIR's residual convs count as '3conv'
+    when any key holds the second conv of such a group."""
+    three_conv = any(_SWIN_CONVS.fullmatch(k) and _SWIN_CONVS.fullmatch(k).group(3) != "0" for k in flat)
     out = {}
     for key in flat:
         arr = np.asarray(flat[key], dtype=np.float32)
         if key.endswith("/kernel"):
-            arr = np.transpose(arr, (3, 2, 0, 1))  # (kh, kw, I, O) -> (O, I, kh, kw)
-        out[_torch_key(key)] = torch.tensor(arr)
+            # (kh, kw, I, O) -> (O, I, kh, kw); (I, O) -> (O, I)
+            arr = np.transpose(arr, (3, 2, 0, 1)) if arr.ndim == 4 else arr.T
+        out[_torch_key(key, three_conv)] = torch.tensor(np.ascontiguousarray(arr))
     return out
 
 
@@ -204,3 +251,86 @@ def seeded_rdresunet_params(hidden=None, depth=3, channels=1, scale=4, rdnet_ini
     draw.conv("reconstruction/pre", 3, head + cin, scale**2 * head)
     draw.conv("reconstruction/conv", 3, head, cout)
     return draw.flat
+
+
+def _trunc_normal(rng, shape, std=0.02):
+    """N(0, std) cut at 2 std (JAX's ``truncated_normal`` init): draws
+    outside are redrawn."""
+    out = rng.standard_normal(shape)
+    bad = np.abs(out) > 2
+    while bad.any():
+        out[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(out) > 2
+    return (std * out).astype(np.float32)
+
+
+def seeded_swinir_params(image_size=128, channels=1, scale=4, embed_dim=96, mlp_ratio=2, depths=None, num_heads=None,
+                         window_size=8, upsampler="pixelshuffle", qkv_bias=True, ape=False, patch_norm=True,
+                         resi_connection="1conv", seed=0) -> dict:
+    """Random weights for ``SwinIR`` with these arguments (the JAX
+    constructor's defaults) in the JAX package's flat layout, drawn from
+    ``seed``: the linears, bias tables and ``ape`` from JAX's init
+    (truncated normal, std 0.02) with zero linear biases, the convs from the
+    torch default (see :class:`_Draws`), and the LayerNorm scales in
+    [0.5, 1.5] (biases 0) rather than at 1, so that their gradients are not
+    trivial."""
+    depths = [4, 4, 4, 4] if depths is None else list(depths)
+    num_heads = [6, 6, 6, 6] if num_heads is None else list(num_heads)
+    cin, cout = (channels, channels) if isinstance(channels, int) else channels
+    draw = _Draws(seed)
+    rng, flat = draw.rng, draw.flat
+    hidden, num_feat = int(embed_dim * mlp_ratio), 64
+    ws = min(window_size, image_size)  # the blocks clamp the window to the image
+
+    def ln(path, c):
+        flat[f"{path}/scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        flat[f"{path}/bias"] = np.zeros(c, np.float32)
+
+    def lin(path, i, o, bias=True):
+        flat[f"{path}/kernel"] = _trunc_normal(rng, (i, o))
+        if bias:
+            flat[f"{path}/bias"] = np.zeros(o, np.float32)
+
+    def convs(path, c):
+        if resi_connection == "1conv":
+            draw.conv(f"{path}/0", 3, c, c)
+        else:
+            draw.conv(f"{path}/0", 3, c, c // 4)
+            draw.conv(f"{path}/1", 1, c // 4, c // 4)
+            draw.conv(f"{path}/2", 3, c // 4, c)
+
+    draw.conv("conv_first", 3, cin, embed_dim)
+    if patch_norm:
+        ln("patch_embed/norm", embed_dim)
+    if ape:
+        flat["absolute_pos_embed"] = _trunc_normal(rng, (1, image_size * image_size, embed_dim))
+    for i, (depth, heads) in enumerate(zip(depths, num_heads)):
+        for j in range(depth):
+            p = f"layers/{i}/residual_group/blocks/{j}"
+            ln(f"{p}/norm1", embed_dim)
+            lin(f"{p}/attn/qkv", embed_dim, 3 * embed_dim, qkv_bias)
+            lin(f"{p}/attn/proj", embed_dim, embed_dim)
+            flat[f"{p}/attn/relative_position_bias_table"] = _trunc_normal(rng, ((2 * ws - 1) ** 2, heads))
+            ln(f"{p}/norm2", embed_dim)
+            lin(f"{p}/mlp/fc1", embed_dim, hidden)
+            lin(f"{p}/mlp/fc2", hidden, embed_dim)
+        convs(f"layers/{i}/convs", embed_dim)
+    ln("norm", embed_dim)
+    convs("conv_after_body", embed_dim)
+    if upsampler == "pixelshuffle":
+        draw.conv("conv_before_upsample", 3, embed_dim, num_feat)
+        steps = [4] * int(np.log2(scale)) if (scale & (scale - 1)) == 0 else [9]
+        for k, r2 in enumerate(steps):
+            draw.conv(f"upsample/{k}", 3, num_feat, r2 * num_feat)
+        draw.conv("conv_last", 3, num_feat, cout)
+    elif upsampler == "pixelshuffledirect":
+        draw.conv("upsample_direct", 3, embed_dim, scale**2 * cout)
+    elif upsampler == "nearest+conv":
+        draw.conv("conv_before_upsample", 3, embed_dim, num_feat)
+        for name in ("conv_up1", "conv_up2") if scale == 4 else ("conv_up1",):
+            draw.conv(name, 3, num_feat, num_feat)
+        draw.conv("conv_hr", 3, num_feat, num_feat)
+        draw.conv("conv_last", 3, num_feat, cout)
+    else:
+        draw.conv("conv_last", 3, embed_dim, cout)
+    return flat

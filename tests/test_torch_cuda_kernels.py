@@ -15,7 +15,7 @@ the CPU tests hold those against the JAX package.
 import pytest
 import torch
 
-from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused
+from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused, swinblock, winattn
 
 pytestmark = pytest.mark.cuda
 
@@ -375,3 +375,157 @@ def test_rdtail_refuses_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="G <="):
         wide = (*params[:4], torch.zeros(64, rdtail.MAX_G + 1, device=device), torch.zeros(rdtail.MAX_G + 1, device=device))
         rdtail.fused_rd_tail(x, *wide, eps=1e-6)
+
+
+# (B, H, W, C, heads, ws, hidden) of the Swin block: the default SwinIR's
+# widths on a small image and at its canonical shape (batch 16, 128^2:
+# 4,096 windows); 4 x 4 windows (16 tokens) with a head dimension of 15 and
+# no width a multiple of 64; SwinIR-M's widths (C 180, 6 heads of 30, MLP
+# 360); the largest C and hidden the kernels take, at a head dimension of 32
+SWIN_SHAPES = [(2, 16, 16, 96, 6, 8, 192), (16, 128, 128, 96, 6, 8, 192), (1, 24, 16, 60, 4, 4, 120),
+               (1, 16, 16, 180, 6, 8, 360), (1, 16, 16, swinblock.MAX_C, 6, 8, swinblock.MAX_HIDDEN)]
+
+
+def _swin_inputs(device, dtype, b, h, w, c, heads, ws, hidden, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    mk = lambda *s, sc=0.1: (sc * torch.randn(*s, generator=gen)).to(device)
+    n = ws * ws
+    x = torch.randn(b, h, w, c, generator=gen).to(device, dtype)
+    params = (mk(c, sc=0.5) + 1.0, mk(c), mk(c, 3 * c, sc=c**-0.5), mk(3 * c), mk(c, c, sc=c**-0.5), mk(c),
+              mk(c, sc=0.5) + 1.0, mk(c), mk(c, hidden, sc=c**-0.5), mk(hidden), mk(hidden, c, sc=hidden**-0.5),
+              mk(c), mk(heads, n, n, sc=0.5))
+    scales = (torch.tensor([1.25, 0.0] * b, device=device)[:b], torch.tensor([0.0, 1.25] * b, device=device)[:b])
+    return x, params, scales, torch.randn(b, h, w, c, generator=gen).to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["eval", "droppath"])
+@pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
+@pytest.mark.parametrize("shape", SWIN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_swinblock_fwd_bwd_match_plain(device, shape, shifted, scaled, dtype):
+    """The forward kernel against reference_block within
+    swinblock.TOLERANCE, and the two backward launches against
+    reference_block_bwd within swinblock.BWD_TOLERANCE and the row-count
+    bound of the sums; the bias map of the shapes is large (0.5), so the
+    shift mask and the label regions show."""
+    b, h, w, c, heads, ws, hidden = shape
+    x, params, scales, gout = _swin_inputs(device, dtype, *shape)
+    kw = dict(heads=heads, ws=ws, shift=ws // 2 if shifted else 0, eps=1e-6, scales=scales if scaled else None)
+    with torch.no_grad():
+        before = (swinblock.launches, swinblock.bwd_launches)
+        out = swinblock._launch_fwd(x, params, kw["heads"], ws, kw["shift"], 1e-6, kw["scales"])
+        grads = swinblock._launch_bwd(x, params, gout, kw["heads"], ws, kw["shift"], 1e-6, kw["scales"])
+        assert (swinblock.launches, swinblock.bwd_launches) == (before[0] + 1, before[1] + 2)
+        ref = swinblock.reference_block(x, params, **kw)
+        ref_grads = swinblock.reference_block_bwd(x, params, gout, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and out.dtype == dtype
+    err, rel, bound = swinblock.errors(out, ref)
+    print(f"out {err:.3g} (rel {rel:.2g}) <= {bound:.3g}")
+    assert err <= bound, f"out: max abs error {err} > {bound}"
+    errs = swinblock.bwd_errors(grads, ref_grads)
+    print(" ".join(f"{k} {e:.3g} (rel {r:.2g})" for k, (e, r, _) in errs.items()))
+    for name, (err, _, bound) in errs.items():
+        assert err <= bound, f"{name}: max abs error {err} > {bound}"
+
+
+def test_swinblock_autograd_goes_through_kernels(device):
+    """Under autograd a CUDA tensor launches the forward and both backward
+    kernels; the scale fold and the parameters' f32 gradients come back as
+    the plain versions give them."""
+    x, params, scales, gout = _swin_inputs(device, torch.bfloat16, 2, 16, 16, 48, 3, 8, 96)
+    kw = dict(heads=3, scale=0.25, ws=8, shift=4, eps=1e-6, scales=scales)
+    xk = x.clone().requires_grad_()
+    pk = [p.clone().requires_grad_() for p in params]
+    f0, b0 = swinblock.launches, swinblock.bwd_launches
+    swinblock.fused_swin_block(xk, pk, **kw).backward(gout)
+    assert (swinblock.launches, swinblock.bwd_launches) == (f0 + 1, b0 + 2)
+    folded = [p.clone().requires_grad_() for p in params]
+    with torch.no_grad():
+        ref = swinblock.reference_block_bwd(x, swinblock._fold_scale(folded, 0.25), gout,
+                                            **{k: v for k, v in kw.items() if k != "scale"})
+    ref_p = torch.autograd.grad(swinblock._fold_scale(folded, 0.25)[2:4], folded[2:4], ref[3:5])
+    assert xk.grad.dtype == torch.bfloat16 and all(p.grad.dtype == torch.float32 for p in pk)
+    got = (xk.grad, *(p.grad for p in pk))
+    want = (ref[0], ref[1], ref[2], *ref_p, *ref[5:])
+    for name, (err, _, bound) in swinblock.bwd_errors(got, want).items():
+        assert err <= bound, f"{name}: max abs error {err} > {bound}"
+
+
+def test_swinblock_refuses_what_it_does_not_take(device):
+    x, params, _, _ = _swin_inputs(device, torch.float32, 1, 16, 16, 48, 3, 8, 96)
+    with pytest.raises(TypeError):
+        swinblock._launch_fwd(x.half(), params, 3, 8, 0, 1e-6)
+    with pytest.raises(ValueError):
+        swinblock._launch_fwd(x[..., :40], params, 3, 8, 0, 1e-6)
+    with pytest.raises(ValueError, match="C <="):
+        xw, pw, _, _ = _swin_inputs(device, torch.float32, 1, 8, 8, swinblock.MAX_C + 6, 6, 8, 96)
+        swinblock._launch_fwd(xw, pw, 6, 8, 0, 1e-6)
+    with pytest.raises(ValueError, match="hidden <="):
+        xw, pw, _, _ = _swin_inputs(device, torch.float32, 1, 8, 8, 48, 3, 8, swinblock.MAX_HIDDEN + 8)
+        swinblock._launch_fwd(xw, pw, 3, 8, 0, 1e-6)
+    with pytest.raises(ValueError, match="ws"):
+        xw, pw, _, _ = _swin_inputs(device, torch.float32, 1, 9, 9, 48, 3, 9, 96)
+        swinblock._launch_fwd(xw, pw, 3, 9, 0, 1e-6)
+    with pytest.raises(ValueError, match="head dimension"):
+        xw, pw, _, _ = _swin_inputs(device, torch.float32, 1, 8, 8, 132, 2, 8, 96)
+        swinblock._launch_fwd(xw, pw, 2, 8, 0, 1e-6)
+
+
+# (batch, H, W, C, heads, ws): the default SwinIR's attention, small and at
+# its canonical windows (4,096 x 64 x 288), SwinIR-L's widths (C 240, 8
+# heads of 30), and 4 x 4 windows
+WIN_SHAPES = [(2, 32, 32, 96, 6, 8), (16, 128, 128, 96, 6, 8), (1, 16, 32, 240, 8, 8), (3, 8, 12, 60, 4, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("shape", WIN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_winattn_matches_plain(device, shape, masked, dtype):
+    """The window-attention kernel in both layouts against its plain
+    versions within winattn.TOLERANCE."""
+    b, h, w, c, heads, ws = shape
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    qkv = torch.randn(b, h, w, 3 * c, generator=gen).to(device, dtype)
+    bias = (0.5 * torch.randn(heads, ws * ws, ws * ws, generator=gen)).to(device)
+    spec = (h, w, ws, ws // 2) if masked else None
+    mask = winattn._mask_tensor(spec, device)
+    scale = (c // heads) ** -0.5
+    with torch.no_grad():
+        before = winattn.launches
+        img = winattn.fused_window_attention_2d(qkv, bias, spec, scale, heads, ws)
+        wins = winattn.windows(qkv, ws)
+        flat = winattn.fused_window_attention(wins, bias, spec, scale, heads)
+        assert winattn.launches == before + 2
+        ref = winattn.reference_window_attention_2d(qkv, bias, mask, scale, heads, ws)
+        ref_flat = winattn.reference_window_attention(wins, bias, mask, scale, heads)
+    torch.cuda.synchronize()
+    for got, want in ((img, ref), (flat, ref_flat)):
+        assert got.shape == want.shape and got.dtype == dtype
+        err = (got.float() - want.float()).abs().max().item()
+        bound = winattn.TOLERANCE[dtype] * want.float().abs().max().item()
+        print(f"winattn {err:.3g} <= {bound:.3g}")
+        assert err <= bound
+
+
+def test_winattn_backward_and_refusals(device):
+    """The gradient recomputes through the plain version (no kernel); heads
+    wider than MAX_HEAD_DIM and windows past MAX_N raise."""
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    qkv = torch.randn(2, 16, 16, 3 * 48, generator=gen).to(device).requires_grad_()
+    bias = (0.1 * torch.randn(3, 64, 64, generator=gen)).to(device).requires_grad_()
+    before = winattn.launches
+    out = winattn.fused_window_attention_2d(qkv, bias, (16, 16, 8, 4), 0.25, 3, 8)
+    out.square().sum().backward()
+    assert winattn.launches == before + 1
+    q2, b2 = qkv.detach().clone().requires_grad_(), bias.detach().clone().requires_grad_()
+    winattn.reference_window_attention_2d(q2, b2, winattn._mask_tensor((16, 16, 8, 4), device), 0.25, 3, 8) \
+        .square().sum().backward()
+    for got, want in ((qkv.grad, q2.grad), (bias.grad, b2.grad)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="channels"):
+            winattn.fused_window_attention_2d(torch.zeros(1, 8, 8, 3 * 66, device=device), bias[:2], None, 1.0, 2, 8)
+        with pytest.raises(ValueError, match="tokens"):
+            winattn.fused_window_attention_2d(torch.zeros(1, 9, 9, 3 * 48, device=device),
+                                              torch.zeros(3, 81, 81, device=device), None, 1.0, 3, 9)

@@ -106,8 +106,10 @@ def test_port_imports_standalone():
     )
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 17
-    assert {"pssr2_tpu_torch.models.rdresunet", "pssr2_tpu_torch.models.rdnet", "pssr2_tpu_torch.ops.rdtail"} <= set(names)
+    assert len(names) >= 21
+    assert {"pssr2_tpu_torch.models.rdresunet", "pssr2_tpu_torch.models.rdnet", "pssr2_tpu_torch.ops.rdtail",
+            "pssr2_tpu_torch.models.swinir", "pssr2_tpu_torch.ops.swinblock", "pssr2_tpu_torch.ops.winattn",
+            "pssr2_tpu_torch.ops.blockmath"} <= set(names)
 
 
 def test_entry_points_refuse_missing_card(tmp_path):
@@ -123,3 +125,22 @@ def test_entry_points_refuse_missing_card(tmp_path):
     jtiff.imwrite(root / "a.tif", np.zeros((64, 64), np.uint8))
     with pytest.raises(RuntimeError, match="CUDA"):
         predict_images(model, ImageDataset(root, hr_res=64, val_split=1), out_dir=None)
+
+
+def test_build_key_follows_included_headers(tmp_path):
+    """cuda_build.digest keys a build by the source and the csrc headers it
+    includes: editing the shared header changes the key of both sources
+    that include it, and the sources in the package do include it."""
+    from pssr2_tpu_torch.ops import cuda_build
+
+    for name in ("rdtail", "swinblock"):
+        assert '#include "blockmath.cuh"' in (cuda_build.CSRC / f"{name}.cu").read_text()
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include "shared.cuh"\n#include <cuda_runtime.h>\n')
+    before = cuda_build.digest(src)
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    assert cuda_build.digest(src) == before
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    assert cuda_build.digest(src) != before
