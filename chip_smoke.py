@@ -23,7 +23,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    with DropPath keep-scales) and backward at the default SwinIR's blocks
    at batch 16 ((16, 128, 128, 96), unshifted and shifted), in f32 and
    bf16; the window attention at those windows (4,096 x 64 x 288) and at
-   the SwinIR-L widths (C 240, 8 heads), masked and unmasked;
+   the SwinIR-L widths (C 240, 8 heads), masked and unmasked; the soft
+   histogram forward and backward at the learned crappifier's (16, 16384)
+   x 512 and at a ragged value count; the BatchNorm dual sums at one
+   ResUNet training step's shapes, f32 and bf16; the int8 conv layer at
+   every distinct int8 conv shape of the int8 ResUNet() and RDResUNet()
+   decoder at batch 16, with the int8 and both glue epilogues, bit for bit;
 4. serving: ``predict_images`` with the full-width ``ResUNet()`` x4 on 32
    synthetic 128^2 -> 512^2 tiles in f32 and bf16, twice (the first call
    with cuDNN set-up, the second warm), with the kernels' launch counts
@@ -35,7 +40,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``torch.profiler`` (device busy and idle over the whole call); then a
    model of the SwinIR-L widths (embed 240, 8 heads, '3conv',
    'nearest+conv', 2 x 2 blocks) through the window-attention kernel, one
-   call per dtype, one f32 tile held against the CPU;
+   call per dtype, one f32 tile held against the CPU; then the full-width
+   ResUNet() and RDResUNet() quantized to int8 (calibrated on the 32 tiles)
+   in f32 and bf16 glue, two calls each, every int8 conv through the
+   q8chain kernel (and RDResUNet's float encoder through rdtail), launches
+   checked, the distance from the float model printed, one f32-glue tile
+   held against the same executor on the CPU;
 5. training: the full-width ``ResUNet()`` in train mode, a few steps in
    bf16 and in f32 on 512^2 uint8 patches from ``PatchLoader`` at batch 16
    (device augment, downscale, Poisson noise; ``SSIMLoss(mix=0.8,
@@ -50,7 +60,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and a state directory, for 2 epochs, then resumed by a second call to
    3, with the epoch times and every kernel's launches checked; then the
    full-width RDResUNet and SwinIR in bf16 for 2 epochs in one call each,
-   the same way.
+   the same way;
+7. train_crappifier: the full-width ResUNet(scale=1) as a learned
+   crappifier (soft-histogram loss times the SSIM of the noise profiles)
+   over the 32 tiles at batch 16, 2 epochs in bf16 and 1 in f32, with every
+   kernel's launches checked (convchain, SSIM, BatchNorm sums, soft
+   histogram), then one f32 step on 2 samples held against the CPU;
+8. approximate_crappifier on the host (no kernel), a few objective calls.
+
+Every ResUNet and RDResUNet training step also launches the chanstats
+kernel: its train-mode BatchNorm sums.
 
 The last two lines are a JSON line of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  This script imports nothing of
@@ -78,7 +97,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 HIDDEN, DEPTH, SCALE, LR_RES, BATCH, TILES = [64, 128, 256, 512, 1024], 3, 4, 128, 16, 32
-SOURCES = ("convchain", "convchain_bwd", "ssimfused", "rdtail", "swinblock")
+SOURCES = ("convchain", "convchain_bwd", "ssimfused", "rdtail", "swinblock", "gradhist", "chanstats", "q8chain")
 # The f32 card output against the same model on the CPU, on the [0, 255]
 # scale: only the order of f32 summation differs, through 45 layers
 # (ResUNet) or 21 dense blocks and 16 decoder layers (RDResUNet).
@@ -973,22 +992,24 @@ def run_slice(device, seed, card, root, tmp, kind, calls=("first", "second")):
 
 # the launch counters, in the order of _counts()
 COUNTERS = ("convchain_fwd", "convchain_bwd", "ssim_fwd", "ssim_bwd", "ssim_pool_fwd", "ssim_pool_bwd",
-            "ssim_l0_fwd", "ssim_l0_bwd", "rdtail_fwd", "rdtail_bwd", "swinblock_fwd", "swinblock_bwd", "winattn")
+            "ssim_l0_fwd", "ssim_l0_bwd", "rdtail_fwd", "rdtail_bwd", "swinblock_fwd", "swinblock_bwd", "winattn",
+            "chanstats", "gradhist_fwd", "gradhist_bwd", "q8conv")
 # f32 tiles of the serving phase held against the CPU, per model
 CPU_TILES = {"ResUNet": 2, "RDResUNet": 1, "SwinIR": 1, "SwinIR-L": 1}
 
 
 def _counts():
-    from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused, swinblock, winattn
+    from pssr2_tpu_torch.ops import chanstats, convchain, gradhist, q8chain, rdtail, ssimfused, swinblock, winattn
 
     return (convchain.launches, convchain.bwd_launches, ssimfused.fwd_launches, ssimfused.bwd_launches,
             ssimfused.pool_fwd_launches, ssimfused.pool_bwd_launches, ssimfused.l0_fwd_launches,
             ssimfused.l0_bwd_launches, rdtail.launches, rdtail.bwd_launches, swinblock.launches,
-            swinblock.bwd_launches, winattn.launches)
+            swinblock.bwd_launches, winattn.launches, chanstats.launches, gradhist.launches, gradhist.bwd_launches,
+            q8chain.launches)
 
 
 def _reset_counts():
-    from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused, swinblock, winattn
+    from pssr2_tpu_torch.ops import chanstats, convchain, gradhist, q8chain, rdtail, ssimfused, swinblock, winattn
 
     convchain.launches = convchain.bwd_launches = 0
     ssimfused.fwd_launches = ssimfused.bwd_launches = 0
@@ -996,6 +1017,7 @@ def _reset_counts():
     ssimfused.l0_fwd_launches = ssimfused.l0_bwd_launches = 0
     rdtail.launches = rdtail.bwd_launches = 0
     swinblock.launches = swinblock.bwd_launches = winattn.launches = 0
+    chanstats.launches = gradhist.launches = gradhist.bwd_launches = q8chain.launches = 0
 
 
 @functools.cache
@@ -1007,22 +1029,35 @@ def _per_step(train=True, metrics=False, kind="ResUNet"):
     each, or the SwinIR-L widths' 4 winattn forwards (served only); the
     loss's level 0, three pool levels and last level, forward (1 launch
     each) and backward (2 each); the metrics add a single-scale SSIM
-    forward.  A validation step runs the forwards only."""
+    forward.  A training step of ResUNet or RDResUNet adds the chanstats
+    launches of its train-mode BatchNorms: the input norm's forward and
+    backward, and one a ResBlock (the last layer's affine backward).  A
+    validation step runs the forwards only, in eval mode."""
     n = dict.fromkeys(COUNTERS, 0)
     if kind == "ResUNet":
         n["convchain_fwd"] = sum(e + p for *_, e, p in layer_shapes())
+        blocks = 2 * len(HIDDEN) - 1
     elif kind == "RDResUNet":
         convs, tails = rd_shapes()
         n["convchain_fwd"], n["rdtail_fwd"] = sum(e + p for *_, e, p in convs), len(tails)
+        blocks = _rd_decoder_blocks()
     elif kind == "SwinIR":
-        n["swinblock_fwd"] = SWIN_BLOCKS
+        n["swinblock_fwd"], blocks = SWIN_BLOCKS, None
     else:
-        n["winattn"] = sum(SWINL["depths"])
+        n["winattn"], blocks = sum(SWINL["depths"]), None
     n.update(ssim_fwd=1 + int(metrics), ssim_pool_fwd=3, ssim_l0_fwd=1)
     if train:
         n.update(convchain_bwd=2 * n["convchain_fwd"], ssim_bwd=2, ssim_pool_bwd=6, ssim_l0_bwd=2,
-                 rdtail_bwd=2 * n["rdtail_fwd"], swinblock_bwd=2 * n["swinblock_fwd"])
+                 rdtail_bwd=2 * n["rdtail_fwd"], swinblock_bwd=2 * n["swinblock_fwd"],
+                 chanstats=0 if blocks is None else 2 + blocks)
     return tuple(n[c] for c in COUNTERS)
+
+
+@functools.cache
+def _rd_decoder_blocks():
+    from pssr2_tpu_torch.models import RDResUNet
+
+    return len(RDResUNet(device="meta").decoder)
 
 
 def _train_parts(seed, kind="ResUNet"):
@@ -1277,16 +1312,474 @@ def _capture_stdout(fn):
     return text.splitlines()
 
 
-def kernels_line(fwd, bwd, ssim, rd, swin, launches):
+# ---- the learned crappifier, the BatchNorm sums and int8 serving (rows 12, 6 and 13) ----
+
+# The learned crappifier's soft histograms: a batch of BATCH noise profiles
+# of LR_RES^2 values each, GRADHIST_BINS bins, sharpness GRADHIST_SIGMA;
+# and one ragged value count
+GRADHIST_BINS, GRADHIST_SIGMA, GRADHIST_RAGGED_N = 512, 5.0, 1000
+# H100 SXM: 132 SMs, 16 special-function results a clock on each (the CUDA
+# programming guide's throughput table for compute capability 9.0); a
+# sigmoid needs at least one (0.5 + 0.5 tanh(z / 2))
+SMS, SFU_PER_CLOCK = 132, 16
+# int8 serving: the f32-glue card output against the same executor on the
+# CPU, relative L2 over the tile ([0, 255] scale).  The int8 layers agree
+# bit for bit; the float parts (the RDNet encoder, the reconstruction's last
+# conv) sum in another order, and a difference at the f32 rounding level can
+# move an int8 value to the other side of a rounding boundary.  JAX's own
+# bound between two int8 engines of one model (its chained and per-conv
+# paths) is 5e-3.
+Q8_CPU_TOL = 5e-3
+# train_crappifier: epochs in bf16, then in f32; the share of the tiles
+# held out for validation
+CRAP_EPOCHS, CRAP_VAL_SPLIT = {torch.bfloat16: 2, torch.float32: 1}, 0.25
+
+
+def _max_sm_clock_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]
+    return 1e6 * float(out)
+
+
+def check_gradhist(device, gen):
+    """Phase 3f: the soft-histogram kernels (row 12) against their plain
+    versions at the learned crappifier's shape (BATCH profiles of LR_RES^2
+    values, 512 bins) and at a ragged value count, with times and the bound:
+    the larger of the sigmoids at the special-function rate (one result
+    each, at the card's largest SM clock) and the bytes.  No PyTorch call
+    computes a soft histogram: no library time.  Returns the numbers of the
+    crappifier's shape, per launch."""
+    from pssr2_tpu_torch.ops import gradhist
+
+    sfu_rate = SMS * SFU_PER_CLOCK * _max_sm_clock_hz()
+    centers = gradhist.bin_centers(GRADHIST_BINS).to(device)
+    print(f"phase kernels: gradhist forward and backward (1 launch each) vs plain, {GRADHIST_BINS} bins, sigma "
+          f"{GRADHIST_SIGMA:g}: max abs error (largest error / bound) | ms of kernel, plain; bound (special "
+          f"functions at {sfu_rate / 1e12:.3f} T/s or bytes)")
+    out = {}
+    for n in (LR_RES * LR_RES, GRADHIST_RAGGED_N):
+        values = 30 * torch.randn(BATCH, n, device=device, generator=gen)
+        g = torch.randn(BATCH, GRADHIST_BINS, device=device, generator=gen)
+        with torch.no_grad():
+            hist = gradhist._launch_fwd(values, centers, GRADHIST_SIGMA)
+            dv = gradhist._launch_bwd(values, centers, GRADHIST_SIGMA, g)
+            ref = gradhist.gradhist_plain(values, centers, GRADHIST_SIGMA)
+            ref_dv = gradhist.gradhist_bwd_plain(values, centers, GRADHIST_SIGMA, g)
+            torch.cuda.synchronize()
+            errs = {"fwd": gradhist.errors(hist, ref, n), "bwd": gradhist.bwd_errors(dv, ref_dv, g, GRADHIST_SIGMA)}
+            del hist, dv, ref, ref_dv
+            times = {
+                "fwd": (cuda_ms(lambda: gradhist._launch_fwd(values, centers, GRADHIST_SIGMA)),
+                        cuda_ms(lambda: gradhist.gradhist_plain(values, centers, GRADHIST_SIGMA), reps=3)),
+                "bwd": (cuda_ms(lambda: gradhist._launch_bwd(values, centers, GRADHIST_SIGMA, g)),
+                        cuda_ms(lambda: gradhist.gradhist_bwd_plain(values, centers, GRADHIST_SIGMA, g), reps=3)),
+            }
+        sigmoids = float(BATCH * n * GRADHIST_BINS)
+        for kind in ("fwd", "bwd"):
+            nbytes = 4 * (BATCH * n + GRADHIST_BINS + BATCH * GRADHIST_BINS) + (4 * BATCH * n if kind == "bwd" else 0)
+            t_ops, t_bytes = sigmoids / sfu_rate, nbytes / PEAK_BYTES
+            b_ms, b_by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+            (err, ratio), (k_ms, p_ms) = errs[kind], times[kind]
+            ok = ratio <= 1
+            print(f"  gradhist_{kind} ({BATCH}, {n}) x {GRADHIST_BINS}: {err:.3g} ({ratio:.3g} of its bound) | "
+                  f"{k_ms:.4f} {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); {sigmoids / k_ms / 1e9:.1f} G sigmoids/s"
+                  + ("" if ok else "  <-- DISAGREES"))
+            if not ok:
+                raise RuntimeError(f"gradhist {kind} disagrees with its plain version at N {n}: {err} ({ratio})")
+            if n == LR_RES * LR_RES:
+                out[f"gradhist_{kind}"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms,
+                                           "bound_by": b_by, "max_abs_err": err}
+        del values, g
+    return out
+
+
+def chanstats_shapes():
+    """{(rows, C): launches in one training step} of the dual sums of the
+    full-width ResUNet at batch 16: the input BatchNorm's forward (x, x) and
+    backward (gy, x) at (BATCH * LR_RES^2, 1), and each ResBlock's last
+    affine backward (gy, h) at its width."""
+    shapes = {(BATCH * LR_RES * LR_RES, 1): 2}
+    for cin, cout, res, e, p in layer_shapes():
+        if e:  # one ResBlock (its entry layer)
+            key = (BATCH * res * res, cout)
+            shapes[key] = shapes.get(key, 0) + e
+    return shapes
+
+
+def check_chanstats(device, gen):
+    """Phase 3g: the dual-sums kernel (row 6) against its plain version at
+    the shapes of one ResUNet training step, in f32 and bf16, with times,
+    the bound (the bytes of x and y read once) and ``torch.var_mean`` over
+    the rows as the yardstick (another function: the mean and variance of
+    x, the statistics the sums of (x, x) give).  Returns per-dtype totals
+    over one training step's launches."""
+    from pssr2_tpu_torch.ops import chanstats
+
+    print("phase kernels: chanstats dual sums (1 launch) vs plain at one ResUNet training step's shapes: max abs "
+          "error (largest error / bound) | ms of kernel, plain, torch.var_mean; bound (bytes)")
+    totals = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tot = _new_totals()
+        for (rows, c), count in chanstats_shapes().items():
+            x = (torch.randn(rows, c, device=device, generator=gen) + 0.3).to(dtype)
+            y = torch.randn(rows, c, device=device, generator=gen).to(dtype)
+            with torch.no_grad():
+                err, ratio = chanstats.errors(chanstats._launch(x, y), x, y)
+                k_ms = cuda_ms(lambda: chanstats._launch(x, y))
+                p_ms = cuda_ms(lambda: chanstats.dual_sums_plain(x, y))
+                l_ms = cuda_ms(lambda: torch.var_mean(x, dim=0))
+            b_ms, b_by = bound(2 * x.element_size() * rows * c + 4 * 2 * c, 2.0 * rows * c, dtype)
+            ok = ratio <= 1
+            print(f"  {str(dtype)[6:]:8s} ({rows}, {c}) x{count}: {err:.3g} ({ratio:.3g}) | {k_ms:.4f} {p_ms:.4f} "
+                  f"{l_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})" + ("" if ok else "  <-- DISAGREES"))
+            if not ok:
+                raise RuntimeError(f"chanstats disagrees with its plain version at ({rows}, {c}) {dtype}: {err}")
+            _add(tot, count, k_ms, p_ms, l_ms, b_ms, b_by, 2.0 * rows * c, err)
+        totals[dtype] = tot
+        print(f"  {dtype}: chanstats over one ResUNet training step's {tot['layers']} launches: kernel "
+              f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, var_mean {tot['library_ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms")
+    return totals
+
+
+def _int8_convs(kind):
+    """{(cin, cout, k, res, mid): {model: count}} of the int8 convs of one
+    forward of the quantized full-width ``kind`` at batch BATCH (the
+    ResBlocks' 3x3 layers, chained where the port chains them, and 1x1
+    residuals; the reconstruction's pre-conv); ``mid``: the layer emits int8
+    (mid-chain), else the glue dtype."""
+    from pssr2_tpu_torch.models import RDResUNet, ResUNet
+    from pssr2_tpu_torch.quant import chain_split
+
+    if kind == "ResUNet":
+        model = ResUNet(hidden=HIDDEN, depth=DEPTH, scale=SCALE, device="meta")
+        n = len(model.encoder)
+        blocks = [(b, LR_RES >> i) for i, b in enumerate(model.encoder)]
+        blocks += [(b, LR_RES >> (n - 2 - i)) for i, b in enumerate(model.decoder)]
+    else:
+        model = RDResUNet(scale=SCALE, device="meta")
+        res = LR_RES // model.ratios[-1] // 2 ** sum(model.encoder.ds_blocks)
+        blocks = [(b, res << i) for i, b in enumerate(model.decoder)]
+    out = {}
+
+    def add(key):
+        out[key] = out.get(key, 0) + 1
+
+    for blk, res in blocks:
+        convs = [blk.conv[3 * i] for i in range(blk.n_layers)]
+        split = chain_split([cv.weight.shape for cv in convs])
+        for i, cv in enumerate(convs):
+            add((cv.in_channels, cv.out_channels, 3, res, split <= i < len(convs) - 1))
+        add((blk.respass.in_channels, blk.respass.out_channels, 1, res, False))
+    pre = model.reconstruction.pre
+    add((pre.in_channels, pre.out_channels, 3, LR_RES, False))
+    return out
+
+
+def check_q8(device, gen):
+    """Phase 3h: the int8 conv-layer kernel (row 13) against its plain
+    version (the conv in float64, exact, and the same epilogue) at every
+    distinct int8 conv shape of the int8 ResUNet() and RDResUNet() decoder
+    at batch 16: mid-chain layers with the int8 epilogue, the others with the
+    f32 and the bf16 glue epilogue, all bit for bit.  Yardsticks, each
+    another function: bf16 F.conv2d at the same shape, and torch._int_mm on
+    the unfolded operands (rows x K*K*Cin padded to 8, by Cout; the unfold
+    not timed).  The bound: 2 N H W K^2 Cin Cout operations at 1,979 TOP/s
+    int8 against x, y and the weights.  Returns per-glue-dtype totals over
+    one forward of the int8 ResUNet()."""
+    from pssr2_tpu_torch.ops import q8chain
+
+    shapes = {}
+    for kind in ("ResUNet", "RDResUNet"):
+        for key, count in _int8_convs(kind).items():
+            shapes.setdefault(key, {})[kind] = count
+    print(f"phase kernels: q8chain int8 conv layer (1 launch) vs plain at batch {BATCH}: int8 / glue outputs bit for "
+          "bit | ms of kernel, plain, bf16 F.conv2d, torch._int_mm; bound (int8 at 1,979 TOP/s, bytes)")
+    totals = {dt: _new_totals() for dt in (torch.float32, torch.bfloat16)}
+    for (cin, cout, k, res, mid), per_model in sorted(shapes.items()):
+        x8 = torch.randint(-127, 128, (BATCH, res, res, cin), device=device, generator=gen, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (cout, cin, k, k), device=device, generator=gen, dtype=torch.int8)
+        affine = torch.stack([torch.rand(cout, device=device, generator=gen) * 1e-4,
+                              torch.randn(cout, device=device, generator=gen)])
+        wk = q8chain.kernel_weight(w8)
+        ops = 2.0 * BATCH * res * res * k * k * cin * cout
+        with torch.no_grad():
+            xb, wb = x8.permute(0, 3, 1, 2).to(torch.bfloat16), w8.to(torch.bfloat16)
+            conv_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=k // 2))
+            del xb, wb
+            kdim = -(-k * k * cin // 8) * 8
+            a = torch.randint(-127, 128, (BATCH * res * res, kdim), device=device, generator=gen, dtype=torch.int8)
+            b = torch.randint(-127, 128, (cout, kdim), device=device, generator=gen, dtype=torch.int8).t()
+            mm_ms = cuda_ms(lambda: torch._int_mm(a, b))
+            del a, b
+            for out_dtype in ((None,) if mid else (torch.float32, torch.bfloat16)):
+                last = out_dtype is not None
+                y_dtype = out_dtype or torch.bfloat16
+                got = q8chain._launch(x8, w8, affine, out_dtype or torch.int8, wk)
+                ref = q8chain.reference_q8_layer(x8, w8, affine, last=last, out_dtype=y_dtype)
+                torch.cuda.synchronize()
+                same = torch.equal(got, ref)
+                err = (got.float() - ref.float()).abs().max().item()
+                del got, ref
+                k_ms = cuda_ms(lambda: q8chain._launch(x8, w8, affine, out_dtype or torch.int8, wk))
+                p_ms = cuda_ms(lambda: q8chain.reference_q8_layer(x8, w8, affine, last=last, out_dtype=y_dtype), reps=2)
+                out_item = 1 if out_dtype is None else torch.empty((), dtype=out_dtype).element_size()
+                nbytes = BATCH * res * res * (cin + out_item * cout) + k * k * cin * cout + 8 * cout
+                t_ops, t_bytes = ops / 1979e12, nbytes / PEAK_BYTES
+                b_ms, b_by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+                epi = "int8" if out_dtype is None else str(out_dtype)[6:]
+                print(f"  {cin:4d}->{cout:4d} {k}x{k} @{res:3d} -> {epi:8s} {per_model}: equal {same} (max abs "
+                      f"{err:.3g}) | {k_ms:.4f} {p_ms:.4f} {conv_ms:.4f} {mm_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+                      f"{ops / k_ms / 1e9:.2f} TOP/s" + ("" if same else "  <-- DISAGREES"))
+                if not same:
+                    raise RuntimeError(f"q8chain disagrees with its plain version at {(cin, cout, k, res, epi)}: {err}")
+                count = per_model.get("ResUNet", 0)
+                for glue in ((torch.float32, torch.bfloat16) if out_dtype is None else (out_dtype,)):
+                    _add(totals[glue], count, k_ms, p_ms, conv_ms, b_ms, b_by, ops, err)
+        del x8, w8, wk
+    for glue, tot in totals.items():
+        print(f"  {glue} glue: q8chain over one int8 ResUNet() forward's {tot['layers']} convs: kernel {tot['ms']:.3f} "
+              f"ms ({tot['ops'] / tot['ms'] / 1e9:.2f} TOP/s), plain {tot['plain_ms']:.3f} ms, bf16 F.conv2d "
+              f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms")
+    return totals
+
+
+def run_q8_serving(device, seed, card, root, tmp, kind):
+    """Phase 4b: predict_images with the full-width ``kind`` quantized to
+    int8 (``quantize_resunet`` / ``quantize_rdresunet``, calibrated by
+    ``calibrate_from_dataset`` on the TILES tiles), f32 and bf16 glue, two
+    calls each, with tiles/s and the q8chain (and RDResUNet's rdtail)
+    launches checked exactly; the relative L2 distance of the int8 output
+    from the float model's on the card; one f32-glue tile held against the
+    same executor on the CPU.  Returns the launches of each dtype's run."""
+    import copy
+
+    from pssr2_tpu_torch import Poisson
+    from pssr2_tpu_torch.data import ImageDataset
+    from pssr2_tpu_torch.predict import predict_images
+    from pssr2_tpu_torch.quant import calibrate_from_dataset, quantize_rdresunet, quantize_resunet
+
+    state = _state(kind, seed)
+    hr_res = LR_RES * SCALE
+    dataset = ImageDataset(root, hr_res=hr_res, lr_scale=SCALE, val_split=1, crappifier=Poisson())
+    np.random.seed(seed)
+    calib = calibrate_from_dataset(dataset, n_batches=TILES // BATCH, batch_size=BATCH)
+    per_fwd = dict.fromkeys(COUNTERS, 0)
+    per_fwd["q8conv"] = sum(_int8_convs(kind).values())
+    if kind == "RDResUNet":
+        per_fwd["rdtail_fwd"] = len(rd_shapes()[1])
+    want = tuple(-(-TILES // BATCH) * per_fwd[c] for c in COUNTERS)
+    quantize = quantize_resunet if kind == "ResUNet" else quantize_rdresunet
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _model(state, dtype, device, kind, train=False)
+        start = time.perf_counter()
+        q = quantize(model, calib)
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - start
+        out_dir = Path(tmp, f"preds_int8_{kind}_{str(dtype)[6:]}")
+        launches[dtype] = (0,) * len(COUNTERS)
+        for call in ("first", "second"):
+            np.random.seed(seed)
+            torch.cuda.synchronize()
+            _reset_counts()
+            start = time.perf_counter()
+            predict_images(q, dataset, device=device, batch_size=BATCH, out_dir=str(out_dir))
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            counts = _counts()
+            launches[dtype] = tuple(a + b for a, b in zip(launches[dtype], counts))
+            print(f"phase serving int8 {kind} {dtype} glue, {call} call: {TILES} tiles in {elapsed:.3f} s = "
+                  f"{TILES / elapsed:.2f} tiles/s on {card} (quantized in {q_s:.2f} s, calibration included); "
+                  f"launches {counts} (want {want})")
+            if counts != want:
+                raise RuntimeError(f"int8 {kind} serving launched {counts}, want {want}")
+        if len(list(out_dir.glob("*.tif"))) != TILES:
+            raise RuntimeError(f"int8 {kind}: predictions missing in {out_dir}")
+        lr = torch.from_numpy(calib[0][:1])
+        with torch.inference_mode():
+            out = q(lr.to(device)).cpu()
+            fp = model(lr.to(device)).cpu()
+        if out.shape != (1, 1, hr_res, hr_res) or not torch.isfinite(out).all():
+            raise RuntimeError(f"int8 {kind} output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
+        dist = ((out - fp).norm() / fp.norm()).item()
+        line = f"  int8 {kind} {dtype} glue: relative L2 from the float model on the card {dist:.4g}"
+        if dtype == torch.float32:
+            del model
+            q_cpu = copy.deepcopy(q).cpu()
+            start = time.perf_counter()
+            with torch.inference_mode():
+                ref = q_cpu(lr)
+            err = ((out - ref).norm() / ref.norm()).item()
+            line += (f"; card vs CPU on 1 tile: relative L2 {err:.3g} (bound {Q8_CPU_TOL}), max abs "
+                     f"{(out - ref).abs().max().item():.3g}; CPU forward {time.perf_counter() - start:.1f} s")
+            del q_cpu
+            if not err <= Q8_CPU_TOL:
+                print(line)
+                raise RuntimeError(f"int8 {kind}: card output differs from the CPU by {err}")
+        print(line)
+        del q
+    return launches
+
+
+def _crap_per_step(train=True):
+    """Launches of one train_crappifier step of the full-width ResUNet(scale=1):
+    its convchain forwards and backwards and train-mode BatchNorm sums (as a
+    ResUNet training step), the single-scale SSIM of the profiles (forward 1,
+    backward 2), two soft histograms and one histogram backward (the target
+    profile needs no gradient).  A validation step: the forwards only."""
+    n = dict(zip(COUNTERS, _per_step(train=train)))
+    n.update(ssim_pool_fwd=0, ssim_pool_bwd=0, ssim_l0_fwd=0, ssim_l0_bwd=0, gradhist_fwd=2,
+             gradhist_bwd=1 if train else 0)
+    return tuple(n[c] for c in COUNTERS)
+
+
+def run_train_crappifier(device, seed, card, root, tmp):
+    """Phase 7: ``train_crappifier`` with the full-width ResUNet(scale=1)
+    (random weights from ``weights.seeded_jax_params(scale=1, seed)``) at
+    batch 16 over the TILES tiles (host loader, Poisson noise, validation
+    split CRAP_VAL_SPLIT): CRAP_EPOCHS[dtype] epochs in bf16 and in f32
+    compute, the launches checked exactly, step and epoch times; then one
+    f32 step on 2 samples held against the same step on the CPU by
+    compare_cpu_step's rule.  Returns the launches of each dtype's run."""
+    from pssr2_tpu_torch import Poisson
+    from pssr2_tpu_torch.data import ImageDataset
+    from pssr2_tpu_torch.models import ResUNet
+    from pssr2_tpu_torch.optim import AdamW, ReduceLROnPlateau
+    from pssr2_tpu_torch.train import train_crappifier
+    from pssr2_tpu_torch.weights import params_from_jax, seeded_jax_params
+
+    state = params_from_jax(seeded_jax_params(HIDDEN, DEPTH, scale=1, seed=seed))
+    dataset = ImageDataset(root, hr_res=LR_RES * SCALE, lr_scale=SCALE, crappifier=Poisson(),
+                           val_split=CRAP_VAL_SPLIT)
+    n_train, n_val = len(dataset) - len(dataset.val_idx), len(dataset.val_idx)
+    n_batches, n_val_batches = -(-n_train // BATCH), -(-n_val // BATCH)
+
+    class EpochClock(ReduceLROnPlateau):
+        stamps = []
+
+        def step(self, metric):
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            super().step(metric)
+
+    launches = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        epochs = CRAP_EPOCHS[dtype]
+        model = ResUNet(hidden=HIDDEN, depth=DEPTH, scale=1, dtype=dtype, device=device)
+        model.load_state_dict(state, strict=True)
+        optim = AdamW(LR_RATE)
+        steps = []
+
+        def stamp(local):
+            torch.cuda.synchronize()
+            steps.append((local["epoch"], local["batch_idx"], time.perf_counter(), local["loss"].item()))
+
+        np.random.seed(seed)
+        torch.cuda.synchronize()
+        _reset_counts()
+        start = time.perf_counter()
+        EpochClock.stamps = [start]
+        results = []
+        _capture_stdout(lambda: results.append(train_crappifier(
+            model, dataset, BATCH, optim, epochs, device=device, scheduler=EpochClock(optim), callbacks=[stamp],
+            checkpoint_dir=str(Path(tmp, f"crap_ckpt_{str(dtype)[6:]}")))))
+        counts = _counts()
+        launches[dtype] = counts
+        per_epoch = [_crap_per_step()] * n_batches + [_crap_per_step(train=False)] * n_val_batches
+        want = tuple(epochs * sum(c) for c in zip(*per_epoch))
+        step_ms = [1e3 * (b[2] - a[2]) for a, b in zip(steps, steps[1:]) if a[0] == b[0]]
+        epoch_s = np.diff(EpochClock.stamps)
+        train_losses, val_losses = results[0]
+        finite = all(np.isfinite(v) for v in train_losses + val_losses)
+        print(f"phase train_crappifier ResUNet(scale=1) {dtype} ({epochs} epochs) on {card}: {n_train} training and "
+              f"{n_val} validation tiles an epoch at batch {BATCH} ({LR_RES}^2 noise profiles); step-to-step times "
+              + ", ".join(f"{t:.2f}" for t in step_ms) + " ms (host loading included); epoch times "
+              + ", ".join(f"{t:.3f}" for t in epoch_s) + f" s; train losses {train_losses}, val losses {val_losses}; "
+              f"launches {counts} (want {want}, {', '.join(COUNTERS)})")
+        if counts != want or not finite or len(val_losses) != epochs:
+            raise RuntimeError(f"train_crappifier {dtype}: launches {counts} (want {want}), losses {results}")
+        del model, optim
+
+    # one f32 step on 2 samples, card vs CPU, by compare_cpu_step's rule
+    from pssr2_tpu_torch.ops.gradhist import make_gradhist
+    from pssr2_tpu_torch.train import _build_crappifier_steps
+    from pssr2_tpu_torch.util import SSIMLoss
+
+    step, _ = _build_crappifier_steps(make_gradhist(), SSIMLoss(ms=False), False, 3)
+    np.random.seed(seed)
+    items = [dataset[i] for i in range(2)]
+    hr = torch.from_numpy(np.stack([it[0] for it in items]))
+    lr = torch.from_numpy(np.stack([it[1] for it in items]))
+    noise = torch.Generator().manual_seed(seed + 1)
+    perturbed = {k: v * (1 + PERTURB * torch.randn(v.shape, generator=noise)) if v.is_floating_point() else v
+                 for k, v in state.items()}
+    runs, secs = [], []
+    for dev, weights in ((device, state), (torch.device("cpu"), state), (torch.device("cpu"), perturbed)):
+        model = ResUNet(hidden=HIDDEN, depth=DEPTH, scale=1, device=dev)
+        model.load_state_dict(weights, strict=True)
+        model.train()
+        optimizer = AdamW(LR_RATE).init(model.parameters())
+        start = time.perf_counter()
+        loss, _ = step(model, optimizer, hr.to(dev), lr.to(dev), LR_RATE, 2, SCALE)
+        runs.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                     {k: v.cpu() for k, v in model.state_dict().items()}))
+        secs.append(time.perf_counter() - start)
+        del model, optimizer
+    got, worst = _step_diff(runs[0], runs[1])
+    own, _ = _step_diff(runs[2], runs[1])
+    got["loss"] /= abs(runs[1][0])  # relative: the loss's scale is that of the histograms
+    own["loss"] /= abs(runs[1][0])
+    limits = dict(STEP_TOL, **{k: SELF_FACTOR * own[k] for k in ("grad", "grads", "moved")})
+    print(f"phase train_crappifier f32 card vs CPU, 1 step on 2 samples: loss {runs[0][0]:.7g} vs {runs[1][0]:.7g}; "
+          + ", ".join(f"{k} {v:.3g} <= {limits[k]:.3g}" for k, v in got.items())
+          + f" (largest gradient error in {worst}; loss relative); the CPU against itself with weights perturbed by "
+          f"{PERTURB:g}: " + ", ".join(f"{k} {v:.3g}" for k, v in own.items())
+          + f"; card step {secs[0]:.2f} s, CPU steps {secs[1]:.1f} s, {secs[2]:.1f} s")
+    bad = {k: v for k, v in got.items() if not v <= limits[k]}
+    if bad:
+        raise RuntimeError(f"card crappifier step differs from the CPU: {bad}")
+    return launches
+
+
+def run_approximate_crappifier(seed, root):
+    """Phase 8: ``approximate_crappifier(Poisson, [Real(0.5, 2)], ...)`` on the
+    host (no kernel): a few objective calls on two tiles, to show the entry
+    point runs on this machine."""
+    import random
+
+    from pssr2_tpu_torch import Poisson
+    from pssr2_tpu_torch.bayes import Real
+    from pssr2_tpu_torch.data import ImageDataset
+    from pssr2_tpu_torch.train import approximate_crappifier
+
+    np.random.seed(seed)
+    random.seed(seed)
+    dataset = ImageDataset(root, hr_res=LR_RES * SCALE, lr_scale=SCALE, crappifier=Poisson(intensity=1.2),
+                           rotation=False, val_split=CRAP_VAL_SPLIT)
+    start = time.perf_counter()
+    res = approximate_crappifier(Poisson, [Real(0.5, 2)], dataset, max_images=2,
+                                 opt_kwargs={"n_calls": 5, "n_initial_points": 3, "random_state": seed})
+    secs = time.perf_counter() - start
+    print(f"phase approximate_crappifier (host): Poisson intensity fit {res.x} (data made with 1.2), objective "
+          f"{res.fun:.4g}, {len(res.func_vals)} calls in {secs:.2f} s")
+    if not (0.5 <= res.x[0] <= 2 and np.isfinite(res.func_vals).all()):
+        raise RuntimeError(f"approximate_crappifier: {res}")
+
+
+def kernels_line(fwd, bwd, ssim, rd, swin, gh, cs, q8, launches):
     """The per-kernel entries of the JSON line.  ``launches[dtype]`` holds
     the counts of every main path in that dtype (serving, the training
-    steps and train_paired of every model), in the order of COUNTERS; the
-    f32 SSIM kernels count the runs of both dtypes.  The convchain times are
+    steps and train_paired of every model, int8 serving by glue dtype,
+    train_crappifier), in the order of COUNTERS; the f32 SSIM kernels and the
+    soft histograms count the runs of both dtypes.  The convchain times are
     those of one ResUNet forward or backward (36 layers), the rdtail times
     those of one RDResUNet forward or backward (21 tails), the swinblock
     times those of one SwinIR() forward or backward (16 blocks), the
     winattn times those of one forward of the SwinIR-L-width model (4
-    blocks)."""
+    blocks), the gradhist times those of one launch at (16, 16384) x 512,
+    the chanstats times those of one ResUNet training step (11 launches),
+    the q8chain times those of one int8 ResUNet() forward (46 convs)."""
     def total(name, dtype=None):
         i = COUNTERS.index(name)
         return sum(c[i] for dt, c in launches.items() if dtype in (None, dt))
@@ -1312,6 +1805,13 @@ def kernels_line(fwd, bwd, ssim, rd, swin, launches):
         for dtype, tots in swin.items():
             tot = tots[kind]
             entries.append((f"{name}[{str(dtype)[6:]}]", "swinblock", replaces, total(name, dtype),
+                            dict(tot, bound_by=max(tot["bound_by"], key=tot["bound_by"].get))))
+    for name, line in (("gradhist_fwd", 33), ("gradhist_bwd", 53)):
+        entries.append((name, "gradhist", f"gradhist.py:{line}", total(name), gh[name]))
+    for name, source, replaces, totals in (("chanstats", "chanstats", "chanstats.py:45", cs),
+                                           ("q8conv", "q8chain", "q8chain.py:82", q8)):
+        for dtype, tot in totals.items():
+            entries.append((f"{name}[{str(dtype)[6:]}]", source, replaces, total(name, dtype),
                             dict(tot, bound_by=max(tot["bound_by"], key=tot["bound_by"].get))))
     kernels = []
     for name, source, replaces, n, tot in entries:
@@ -1368,6 +1868,9 @@ def main():
     ssim = check_ssim(device, gen)
     rd = check_rdtail(device, gen)
     swin = check_swin(device, gen)
+    gh = check_gradhist(device, gen)
+    cs = check_chanstats(device, gen)
+    q8 = check_q8(device, gen)
     launches = {dtype: (0,) * len(COUNTERS) for dtype in (torch.float32, torch.bfloat16)}
 
     def add(dtype, counts):
@@ -1383,6 +1886,9 @@ def main():
                 add(dtype, counts)
         for dtype, counts in run_slice(device, args.seed, card, root, tmp, "SwinIR-L", calls=("first",)).items():
             add(dtype, counts)
+        for kind in ("ResUNet", "RDResUNet"):
+            for dtype, counts in run_q8_serving(device, args.seed, card, root, tmp, kind).items():
+                add(dtype, counts)
         for kind in MODELS:
             for dtype, counts in run_train(device, args.seed, card, root, kind).items():
                 add(dtype, counts)
@@ -1390,8 +1896,11 @@ def main():
         add(torch.bfloat16, run_train_paired(device, args.seed, card, root, tmp, "ResUNet", TP_EPOCHS))
         for kind in ("RDResUNet", "SwinIR"):
             add(torch.bfloat16, run_train_paired(device, args.seed, card, root, tmp, kind, RD_TP_EPOCHS))
+        for dtype, counts in run_train_crappifier(device, args.seed, card, root, tmp).items():
+            add(dtype, counts)
+        run_approximate_crappifier(args.seed, root)
 
-    print(json.dumps({"kernels": kernels_line(fwd, bwd, ssim, rd, swin, launches)}))
+    print(json.dumps({"kernels": kernels_line(fwd, bwd, ssim, rd, swin, gh, cs, q8, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -6,9 +6,12 @@ torch, numpy, scipy and the standard library only: nothing of JAX and
 nothing of ``pssr2_tpu``.
 
 Device rule: entry points (``ResUNet(...)``, ``RDResUNet(...)``,
-``SwinIR(...)``, ``predict_images``, ``train_paired``) run on
+``SwinIR(...)``, ``predict_images``, ``train_paired``,
+``train_crappifier``) run on
 ``cuda`` unless the caller passes ``device="cpu"``.  With no card and no
 explicit CPU request they raise; they never fall back to the CPU.
+``quant.quantize_resunet`` / ``quantize_rdresunet`` build int8 executors
+on the model's device; ``train.approximate_crappifier`` runs on the host.
 
 Float32 convolutions and matrix products run in true f32 (TF32 off), as
 the JAX reference computes them; the flags are set once when the package

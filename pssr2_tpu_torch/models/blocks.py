@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.batchnorm import BatchNorm
+from ..ops.chanstats import channel_sums
 from ..ops.convchain import fused_conv_layer
 from ..ops.shuffle import pixel_shuffle
 
@@ -58,6 +59,24 @@ class Reconstruction(nn.Module):
         return conv_nhwc(pixel_shuffle(x, self.scale), self.conv)
 
 
+class _ChannelAffine(torch.autograd.Function):
+    """``(h.float() * a + b).to(h.dtype)`` for f32 per-channel ``a``, ``b``,
+    with the backward in one pass over ``gy`` and ``h``: ``[db, da] = [sum
+    gy, sum gy h]`` per channel (``ops/chanstats.py``, the chanstats kernel
+    on the card) and ``dh = gy a``."""
+
+    @staticmethod
+    def forward(ctx, h, a, b):
+        ctx.save_for_backward(h, a)
+        return (h.float() * a + b).to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        h, a = ctx.saved_tensors
+        db, da = channel_sums(gy, h)
+        return (gy.float() * a).to(h.dtype), da, db
+
+
 class ResBlock(nn.Module):
     """Conv stack with BatchNorm and a residual 1x1 pass
     (reference: pssr/models/_blocks.py:20-41).
@@ -69,8 +88,9 @@ class ResBlock(nn.Module):
     (sum, sum of squares) in train mode.  There the conv bias is added
     under stop-gradient (``SGBiasConv``, blocks.py:37-105): a train-mode
     BatchNorm cancels it, so its gradient is exactly zero.  The last
-    layer's BatchNorm apply, the residual pass and the final ReLU are
-    plain PyTorch.
+    layer's BatchNorm apply is a per-channel affine whose backward takes
+    its two channel sums from the chanstats kernel; the residual pass and
+    the final ReLU are plain PyTorch.
     """
 
     def __init__(self, in_channels, out_channels, depth, *, device=None):
@@ -95,5 +115,5 @@ class ResBlock(nn.Module):
             h, s1, s2 = fused_conv_layer(h, cv.weight, bias, ab)
             a, b = norm.apply_coeffs(s1, s2, count)
             ab = torch.stack([a, b])
-        h = (h.float() * ab[0] + ab[1]).to(h.dtype)
+        h = _ChannelAffine.apply(h, ab[0], ab[1])
         return torch.relu(h + conv_nhwc(x, self.respass))

@@ -7,4 +7,8 @@ and backward (``ops/convchain.py`` + ``csrc/convchain.cu``,
 (``ops/ssimfused.py`` + ``csrc/ssimfused.cu``), the RDNet block tail
 forward and backward (``ops/rdtail.py`` + ``csrc/rdtail.cu``), and the
 whole Swin block forward and backward and the window attention
-(``ops/swinblock.py``, ``ops/winattn.py`` + ``csrc/swinblock.cu``)."""
+(``ops/swinblock.py``, ``ops/winattn.py`` + ``csrc/swinblock.cu``), the
+soft histogram forward and backward (``ops/gradhist.py`` +
+``csrc/gradhist.cu``), the per-channel dual sums of BatchNorm
+(``ops/chanstats.py`` + ``csrc/chanstats.cu``) and the int8 conv layer
+(``ops/q8chain.py`` + ``csrc/q8chain.cu``)."""

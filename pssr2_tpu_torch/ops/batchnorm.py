@@ -8,19 +8,24 @@ momentum 0.9 (flax's convention; torch's 0.1) and the biased variance,
 under no grad.  ``torch.nn.BatchNorm2d`` updates with the unbiased
 variance, so it is not used.  Eval mode applies the running statistics
 as one f32 affine.  ``model.train()`` / ``model.eval()`` toggle the mode.
+The channel sums of the train-mode forward and backward, ``(sum x, sum
+x^2)`` and ``(sum gy, sum gy x)``, are ``ops/chanstats.py``'s dual sums
+(the chanstats kernel on the card), as JAX's ``_stats`` and ``bn_train``
+take them from ``dual_sums``.
 """
 
 import torch
 from torch import nn
 
+from .chanstats import channel_sums
+
 
 def _stats(x):
     """f32 (mean, biased variance) over every axis but the last."""
-    dims = tuple(range(x.dim() - 1))
     n = x.numel() // x.shape[-1]
-    xf = x.float()
-    mu = xf.sum(dims) / n
-    var = torch.clamp((xf * xf).sum(dims) / n - mu * mu, min=0.0)
+    s = channel_sums(x, x)
+    mu = s[0] / n
+    var = torch.clamp(s[1] / n - mu * mu, min=0.0)
     return mu, var
 
 
@@ -45,13 +50,11 @@ class _BNTrain(torch.autograd.Function):
         #   dgamma = s1 r, dbeta = t0, dx = a gy + c2 x + c1 (c1, c2 below),
         # the cotangents of mu and var included.
         x, scale, mu, var = ctx.saved_tensors
-        dims = tuple(range(x.dim() - 1))
         n = x.numel() // x.shape[-1]
         r = torch.rsqrt(var + ctx.eps)
         a = r * scale
+        t0, t1 = channel_sums(gy.to(x.dtype), x)
         gyf, xf = gy.float(), x.float()
-        t0 = gyf.sum(dims)
-        t1 = (gyf * xf).sum(dims)
         s1 = t1 - mu * t0
         rr = r * r
         c2 = (-a * rr * s1 + 2.0 * gvar) / n

@@ -49,8 +49,9 @@ def predict_images(
 
     Args:
         model : Any model of the port (``models.ResUNet``,
-            ``models.RDResUNet``, ``models.SwinIR``) to receive
-            low-resolution images; moved to ``device``.
+            ``models.RDResUNet``, ``models.SwinIR``), or an int8 executor
+            of ``quant.py`` (``QuantizedResUNet``, ``QuantizedRDResUNet``),
+            to receive low-resolution images; moved to ``device``.
 
         dataset : Dataset to load low-resolution images from.
 

@@ -1,4 +1,4 @@
-"""Training (counterpart: pssr2_tpu/train.py:45-128, 247-764; reference:
+"""Training (counterpart: pssr2_tpu/train.py:45-128, 247-970; reference:
 pssr/train.py).
 
 One step: (optionally) the device degradation of a uint8 HR batch into an
@@ -8,13 +8,18 @@ eagerly, with the hand-written kernels under the model and the loss.
 ``train_paired`` keeps the reference's control surface around it: loss
 every ``log_frequency`` steps, per-epoch validation in a seeded order,
 schedulers, weight checkpoints, per-batch callbacks, and full-state resume.
+``train_crappifier`` trains a scale-1 model as a learned crappifier with
+the soft-histogram loss (``ops/gradhist.py``); ``approximate_crappifier``
+fits a crappifier's parameters on the host by Bayesian optimization
+(``bayes.py``).
 
 Not ported yet: the multi-device paths (``mesh``, ``tp_rules``,
-``dp_shard_map``), the validation collage, the host-crappifier fallback,
-``train_crappifier`` and ``approximate_crappifier``.
+``dp_shard_map``), the validation collage and the host-crappifier
+fallback.
 """
 
 import os
+import random
 import signal
 
 import numpy as np
@@ -25,9 +30,10 @@ from .checkpoint import load_full_state, save_full_state, save_weights
 from .data.indexing import RandomIterIdx, invert_idx
 from .data.pipeline import PatchLoader, make_device_gen_pair
 from .ops.degrade import to_device_fn
+from .ops.gradhist import make_gradhist
 from .ops.ssim import ssim
 from .optim import ReduceLROnPlateau
-from .util import _get_callbacks, _psnr_metric, pixel_metric
+from .util import SSIMLoss, _get_callbacks, _psnr_metric, pixel_metric
 
 IMAGE_RANGE = 255
 
@@ -58,15 +64,18 @@ def _model_loss(model, loss_fn, clamp, lr, hr, extra):
     return loss, hr_hat
 
 
-def _apply_grads(model, optimizer, loss):
+def _apply_grads(model, optimizer, loss, clip=None):
     """Backward and one optimizer step.  A parameter that autograd leaves
     without a gradient (the ResBlock conv biases under train-mode
-    BatchNorm, detached) gets zeros, so AdamW decays it as optax does."""
+    BatchNorm, detached) gets zeros, so AdamW decays it as optax does.
+    ``clip``: clip every gradient element to [-clip, clip] first."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     for p in model.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+        elif clip is not None and clip > 0:
+            p.grad.clamp_(-clip, clip)
     optimizer.step()
 
 
@@ -467,3 +476,237 @@ def train_paired(
 
     model.eval()
     return train_losses, val_losses
+
+
+def _build_crappifier_steps(hist_fn, ssim_loss, clamp, clip):
+    """Train and val steps of :func:`train_crappifier`: the model maps the
+    HR subsampled to the LR grid (``ds_hr = hr[..., ::scale, ::scale]``) to
+    a predicted LR; the loss is the mean squared difference of the soft
+    noise histograms of ``lr_hat - ds_hr`` and ``lr - ds_hr`` over the LR
+    area, times the SSIM loss of those two noise profiles
+    (pssr2_tpu/train.py:808-814; reference: pssr/train.py:388-402).
+    Returned tensors are detached."""
+
+    def crap_loss(lr, lr_hat, ds_hr):
+        pred_profile = lr_hat - ds_hr
+        target_profile = lr - ds_hr
+        dist_error = torch.mean((hist_fn(pred_profile) - hist_fn(target_profile)) ** 2) / (lr.shape[-1] ** 2)
+        return dist_error * ssim_loss(pred_profile, target_profile)
+
+    def forward(model, hr, lr, n_valid, scale):
+        hr, lr = hr[:n_valid], lr[:n_valid]
+        ds_hr = hr[:, :, ::scale, ::scale]
+        lr_hat = model(ds_hr)
+        if clamp:
+            lr_hat = torch.clamp(lr_hat, 0, IMAGE_RANGE)
+        return crap_loss(lr, lr_hat, ds_hr), (lr, lr_hat, hr)
+
+    def train_step(model, optimizer, hr, lr, lr_rate, n_valid, scale):
+        _set_lr(optimizer, lr_rate)
+        loss, (lr, lr_hat, hr) = forward(model, hr, lr, n_valid, scale)
+        _apply_grads(model, optimizer, loss, clip)
+        return loss.detach(), (lr, lr_hat.detach(), hr)
+
+    def val_step(model, hr, lr, n_valid, scale):
+        with torch.no_grad():
+            return forward(model, hr, lr, n_valid, scale)
+
+    return train_step, val_step
+
+
+def train_crappifier(
+    model,
+    dataset,
+    batch_size: int,
+    optim,
+    epochs: int,
+    sigma: int = 5,
+    clip: float = 3,
+    device: str = None,
+    scheduler=None,
+    log_frequency: int = 50,
+    checkpoint_dir: str = None,
+    collage_dir: str = None,
+    clamp: bool = False,
+    dataloader_kwargs=None,
+    callbacks=None,
+    seed: int = 0,
+):
+    """EXPERIMENTAL: trains a model as a learned crappifier on paired data;
+    loss = MSE of differentiable noise histograms x SSIM of the noise
+    profiles (reference: pssr/train.py:168-322, 388-402).  The model must
+    preserve input size (``scale=1``).
+
+    Args:
+        model : A model of the port with ``scale=1`` (``models.ResUNet``,
+            a ``torch.nn.Module``); moved to ``device``.
+
+        dataset : Paired image dataset; its (hr, lr) items come from the
+            host pair loader, crappified on the host.
+
+        batch_size (int) : Batch size.
+
+        optim : :class:`pssr2_tpu_torch.optim.AdamW` (or ``SGD``).
+
+        epochs (int) : Number of epochs.
+
+        sigma (int) : Sharpness of the soft histogram's bins. Default 5.
+
+        clip (float) : Clip every gradient element to [-clip, clip]
+            (None or 0: no clipping). Default 3.
+
+        device (str) : None means the CUDA card, ``"cpu"`` the CPU.
+
+        scheduler : Optional scheduler from :mod:`pssr2_tpu_torch.optim`.
+
+        log_frequency (int) : Steps between loss logging.
+
+        checkpoint_dir (str) : Per-epoch weights checkpoint dir (``.pth``).
+
+        collage_dir (str) : Per-epoch validation collage dir; not ported
+            yet, and must be None.
+
+        clamp (bool) : Clamp the model output to image range before the loss.
+
+        dataloader_kwargs (dict) : ``num_workers`` for the host loader.
+
+        callbacks (list[Callable]) : Per-batch callbacks; 1-arg callables
+            receive the loop ``locals()``.
+
+        seed (int) : Unused (the host loader draws from numpy's and Python's
+            global streams, as in the JAX package); kept for its signature.
+
+    Returns:
+        train_losses (list[float]), val_losses (list[float])
+    """
+    if collage_dir is not None:
+        raise NotImplementedError(
+            "train_crappifier: the validation collage (collage_dir) is not ported yet (ROADMAP queue 1 item 3)."
+        )
+    device = resolve_device(device)
+    dataloader_kwargs = dataloader_kwargs or {}
+    num_workers = dataloader_kwargs.get("num_workers", 4)
+    callbacks, callback_locals = _get_callbacks(callbacks)
+
+    train_sampler = RandomIterIdx(list(invert_idx(dataset.val_idx, len(dataset))))
+    val_sampler = RandomIterIdx(dataset.val_idx, seed=True)
+    train_loader = _PairBatchLoader(dataset, train_sampler, batch_size, num_workers)
+    val_loader = _PairBatchLoader(dataset, val_sampler, batch_size, num_workers)
+    include_metric = isinstance(scheduler, ReduceLROnPlateau)
+
+    model.to(device)
+    optimizer = optim.init(model.parameters())
+    train_step, val_step = _build_crappifier_steps(make_gradhist(sigma=sigma), SSIMLoss(ms=False), clamp, clip)
+
+    def batches(loader):
+        for (hr, lr), _extra, n_valid in loader:
+            yield _to_device(hr, device), _to_device(lr, device), n_valid
+
+    train_losses, val_losses = [], []
+    for epoch in range(epochs):
+        model.train()
+        print(f"Epoch {epoch}:")
+        n_batches = len(train_loader)
+        for batch_idx, (hr, lr, n_valid) in enumerate(batches(train_loader)):
+            scale = int(hr.shape[-1] / lr.shape[-1])
+            loss, tensors = train_step(model, optimizer, hr, lr, optim.lr, n_valid, scale)
+            if batch_idx % log_frequency == 0 or batch_idx == n_batches - 1:
+                train_losses.append(float(loss))
+                print(f"  batch {batch_idx + 1}/{n_batches}: loss[{train_losses[-1]:.4f}]")
+            for idx, callback in enumerate(callbacks):
+                if callback_locals[idx]:
+                    callback(locals())
+                else:
+                    callback()
+
+        model.eval()
+        print(f"Epoch {epoch} validation...")
+        val_loss = []
+        for hr, lr, n_valid in batches(val_loader):
+            scale = int(hr.shape[-1] / lr.shape[-1])
+            loss, _ = val_step(model, hr, lr, n_valid, scale)
+            val_loss.append(float(loss))
+
+        val_loss = sum(val_loss) / len(val_loss)
+        val_losses.append(val_loss)
+        print(f"Epoch {epoch} validation loss: {val_loss:4f}\n")
+
+        if checkpoint_dir and epoch < epochs - 1:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            save_weights(model, f"{checkpoint_dir}/checkpoint{epoch}_{type(model).__name__}_{val_loss:.4f}.pth")
+        if scheduler:
+            if include_metric:
+                scheduler.step(val_loss)
+            else:
+                scheduler.step()
+
+    model.eval()
+    return train_losses, val_losses
+
+
+def approximate_crappifier(crappifier, space, dataset, max_images=None, opt_kwargs=None):
+    """Approximates :class:`Crappifier` parameters from real paired images by
+    Bayesian optimization (reference: pssr/train.py:324-386; the crappifier
+    objective is non-differentiable so gp minimization is used).  Host
+    numpy throughout.
+
+    Args:
+        crappifier : Crappifier *class* whose parameter space is optimized.
+
+        space : List of parameter spaces (:class:`pssr2_tpu_torch.bayes.Real` /
+            ``Integer``), one per crappifier parameter.
+
+        dataset : Paired image dataset.
+
+        max_images (int) : Samples averaged per optimization step.
+
+        opt_kwargs (dict) : Keyword arguments for ``gp_minimize``.
+    """
+    from .bayes import gp_minimize
+
+    space = [space] if not isinstance(space, list) else space
+    n_samples = len(dataset) if max_images is None else min(max_images, len(dataset))
+    opt_kwargs = {} if opt_kwargs is None else opt_kwargs
+
+    objective = _CrappifierObjective(crappifier, dataset, n_samples).sample
+    return gp_minimize(objective, space, **opt_kwargs)
+
+
+class _CrappifierObjective:
+    """(reference: pssr/train.py:348-386; pssr2_tpu/train.py:924-970)"""
+
+    def __init__(self, crappifier, dataset, n_samples):
+        self.crappifier = crappifier
+        self.dataset = dataset
+        self.n_samples = n_samples
+
+    def sample(self, params):
+        from .ops.resize import resize_bilinear_np
+
+        sample_idx = list(range(len(self.dataset)))
+        random.shuffle(sample_idx)
+
+        metrics = []
+        for idx in sample_idx[: self.n_samples]:
+            hr, lr = self.dataset[idx]
+            hr = np.clip(np.asarray(hr), 0, 255).astype(np.uint8)
+            lr = np.clip(np.asarray(lr), 0, 255).astype(np.uint8)
+
+            # the HR downsampled to the LR grid is the baseline of both noise profiles
+            ds_hr = np.clip(np.round(resize_bilinear_np(hr, *lr.shape[-2:])), 0, 255).astype(np.uint8)
+            # the candidate is quantized as the acquisition quantizes the real LR
+            # (round + uint8 clip), as in the JAX package (a deliberate deviation
+            # from the reference, whose continuous candidate biases the fit)
+            lr_hat = np.clip(np.round(self.crappifier(*params).crappify(ds_hr)), 0, 255)
+
+            pred_profile = lr_hat.astype(np.float32) - ds_hr.astype(np.float32)
+            target_profile = lr.astype(np.float32) - ds_hr.astype(np.float32)
+
+            bins = np.arange(-256, 256)
+            pred_dist, _ = np.histogram(pred_profile.flatten(), bins)
+            target_dist, _ = np.histogram(target_profile.flatten(), bins)
+
+            dist_error = np.mean((target_dist - pred_dist) ** 2) / (lr.shape[-1] ** 2)
+            value_error = abs(target_profile.mean() - pred_profile.mean())
+            metrics.append(dist_error + value_error)
+        return sum(metrics) / len(metrics)

@@ -15,7 +15,7 @@ the CPU tests hold those against the JAX package.
 import pytest
 import torch
 
-from pssr2_tpu_torch.ops import convchain, rdtail, ssimfused, swinblock, winattn
+from pssr2_tpu_torch.ops import chanstats, convchain, gradhist, q8chain, rdtail, ssimfused, swinblock, winattn
 
 pytestmark = pytest.mark.cuda
 
@@ -529,3 +529,101 @@ def test_winattn_backward_and_refusals(device):
         with pytest.raises(ValueError, match="tokens"):
             winattn.fused_window_attention_2d(torch.zeros(1, 9, 9, 3 * 48, device=device),
                                               torch.zeros(3, 81, 81, device=device), None, 1.0, 3, 9)
+
+
+# ---- the learned crappifier's soft histogram, the BatchNorm sums, int8 serving ----
+
+
+@pytest.mark.parametrize("n", [16384, 1000, 37], ids=lambda n: f"N{n}")
+def test_gradhist_matches_plain(device, n):
+    """Forward and backward at the crappifier's N and at ragged N (the masked tail)."""
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    values = (30 * torch.randn(4, n, generator=gen)).to(device)
+    g = torch.randn(4, 512, generator=gen).to(device)
+    centers = gradhist.bin_centers().to(device)
+    before = (gradhist.launches, gradhist.bwd_launches)
+    v = values.clone().requires_grad_()
+    hist = gradhist.GradHist(sigma=5)(v)
+    (hist * g).sum().backward()
+    assert (gradhist.launches, gradhist.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref = gradhist.gradhist_plain(values, centers, 5.0)
+    ref_dv = gradhist.gradhist_bwd_plain(values, centers, 5.0, g)
+    torch.cuda.synchronize()
+    err, ratio = gradhist.errors(hist.detach(), ref, n)
+    err_b, ratio_b = gradhist.bwd_errors(v.grad, ref_dv, g, 5.0)
+    print(f"gradhist N {n}: fwd {err:.3g} ({ratio:.3g} of its bound), bwd {err_b:.3g} ({ratio_b:.3g})")
+    assert ratio <= 1 and ratio_b <= 1
+
+
+def test_gradhist_refuses_what_it_does_not_take(device):
+    centers = gradhist.bin_centers().to(device)
+    with pytest.raises(TypeError):
+        gradhist.gradhist(torch.zeros(2, 8, device=device, dtype=torch.float64), centers, 5.0)
+    with pytest.raises(ValueError):
+        gradhist.gradhist(torch.zeros(2, 8, 2, device=device)[..., 0], centers, 5.0)  # not contiguous
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,c", [(262144, 1), (65536, 64), (1024, 1024), (1000, 96), (77, 300)],
+                         ids=lambda v: str(v))
+def test_dual_sums_match_plain(device, rows, c, dtype):
+    gen = torch.Generator(device="cpu").manual_seed(rows + c)
+    x = (torch.randn(rows, c, generator=gen) + 0.3).to(device, dtype)
+    y = torch.randn(rows, c, generator=gen).to(device, dtype)
+    before = chanstats.launches
+    got = chanstats.dual_sums(x, y)
+    assert chanstats.launches == before + 1 and got.shape == (2, c) and got.dtype == torch.float32
+    err, ratio = chanstats.errors(got, x, y)
+    print(f"dual_sums {rows}x{c} {dtype}: {err:.3g} ({ratio:.3g} of its bound)")
+    assert ratio <= 1
+    with pytest.raises(TypeError):
+        chanstats.dual_sums(x, y.float() if dtype == torch.bfloat16 else y.bfloat16())
+
+
+def test_train_resblock_launches_dual_sums(device):
+    """A train-mode ResBlock's backward takes the last affine's sums from the kernel."""
+    from pssr2_tpu_torch.models.blocks import ResBlock
+
+    blk = ResBlock(8, 64, 1, device=device).train()
+    x = torch.randn(2, 16, 16, 8, device=device, requires_grad=True)
+    before = chanstats.launches
+    blk(x).square().sum().backward()
+    assert chanstats.launches == before + 1 and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("out", ["int8", "f32", "bf16"])
+@pytest.mark.parametrize("cin,cout,k,h,w", [(1, 64, 3, 20, 24), (64, 64, 3, 16, 16), (33, 70, 3, 9, 17),
+                                            (48, 32, 1, 12, 20), (768, 512, 3, 16, 16), (1024, 1024, 3, 8, 8)],
+                         ids=lambda v: str(v))
+def test_q8_layer_matches_plain(device, cin, cout, k, h, w, out):
+    gen = torch.Generator(device="cpu").manual_seed(cin * cout + k)
+    x8 = torch.randint(-127, 128, (2, h, w, cin), generator=gen, dtype=torch.int8).to(device)
+    w8 = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, dtype=torch.int8).to(device)
+    affine = torch.stack([torch.rand(cout, generator=gen) * 1e-3, torch.randn(cout, generator=gen)]).to(device)
+    last, dtype = out != "int8", {"int8": torch.bfloat16, "f32": torch.float32, "bf16": torch.bfloat16}[out]
+    before = q8chain.launches
+    got = q8chain.q8_conv_layer(x8, w8, affine, last=last, out_dtype=dtype)
+    assert q8chain.launches == before + 1
+    ref = q8chain.reference_q8_layer(x8, w8, affine, last=last, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()
+
+
+def test_quantized_resunet_serves_on_the_card(device):
+    """A small int8 ResUNet on the card: every int8 conv launches the
+    kernel, and the f32-glue output equals the CPU executor's."""
+    from pssr2_tpu_torch.models import ResUNet
+    from pssr2_tpu_torch.quant import quantize_resunet
+
+    torch.manual_seed(0)
+    model = ResUNet(hidden=[32, 64], depth=1, device="cpu")
+    calib = [torch.rand(2, 1, 32, 32).numpy() * 255]
+    q = quantize_resunet(model, calib)
+    x = torch.rand(2, 1, 32, 32) * 255
+    with torch.inference_mode():
+        ref = q(x)
+        before = q8chain.launches
+        got = q.to(device)(x.to(device)).cpu()
+    assert q8chain.launches - before == 3 * 3 + 1  # 3 blocks of 2 convs and a 1x1, and the recon's pre-conv
+    assert (got - ref).abs().max().item() <= 1e-3
