@@ -7,7 +7,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the CUDA kernel sources are compiled with nvcc, all at once
-   (seconds, registers and spills printed);
+   (seconds, registers and spills printed); then the SASS of the convchain
+   libraries (``cuobjdump``): each kernel's HGMMA (wgmma) and HMMA
+   (mma.sync) count beside its registers, shared memory and local bytes,
+   failing if cuobjdump is missing or a bf16 convchain kernel has neither;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with times (CUDA events), its bound
    and a library yardstick: the convchain forward and backward at every
@@ -49,12 +52,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
 5. training: the full-width ``ResUNet()`` in train mode, a few steps in
    bf16 and in f32 on 512^2 uint8 patches from ``PatchLoader`` at batch 16
    (device augment, downscale, Poisson noise; ``SSIMLoss(mix=0.8,
-   ms=True)``; AdamW), with the launch counts checked per step, then one
+   ms=True)``; AdamW), with the launch counts checked per step and one more
+   bf16 step traced by ``torch.profiler`` (device time by kernel group,
+   busy share, top kernels), then one
    f32 step on 2 samples held against the same step on the CPU; then the
-   same steps with the full-width ``RDResUNet()`` and ``SwinIR()`` (DropPath
-   live, 16 whole-block forwards and 32 backward launches a step, and one
-   more step per dtype traced by ``torch.profiler``: device time by kernel
-   group and the device's busy share);
+   same steps with the full-width ``RDResUNet()`` (one bf16 step traced)
+   and ``SwinIR()`` (DropPath live, 16 whole-block forwards and 32 backward
+   launches a step, and one more step per dtype traced);
 6. train_paired: the full-width ResUNet in bf16 compute, batch 16, over
    the 32 tiles with validation, a ReduceLROnPlateau, weight checkpoints
    and a state directory, for 2 epochs, then resumed by a second call to
@@ -80,6 +84,7 @@ import argparse
 import functools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -223,10 +228,66 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
+# The libraries whose bf16 kernels run on the tensor cores; a kernel of
+# theirs is a bf16 one exactly when its name holds "convchain_tc_"
+TC_LIBS = ("convchain", "convchain_bwd")
+
+
+def _kernel_label(mangled):
+    """convchain_tc_fwd_kernel<2,128,1> from the mangled name."""
+    m = re.search(r"\d(convchain\w*?_kernel)I(\w*?)EE?v", mangled)
+    if not m:
+        return mangled[:60]
+    args = ["float"] if m.group(2).startswith("f") else []
+    return f"{m.group(1)}<{','.join(args + re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+
+
+def check_sass(builds):
+    """Phase 2b: each kernel of TC_LIBS with its count of HGMMA (wgmma) and
+    HMMA (mma.sync) instructions in the SASS, its registers, shared memory
+    (static) and local (spill) bytes (``cuobjdump -sass`` and
+    ``-res-usage``).  Fails if cuobjdump is missing, or a bf16 kernel has
+    neither instruction."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise RuntimeError("cuobjdump not found: the SASS of the convchain kernels cannot be checked")
+    print("phase sass: convchain kernels, tensor-core instructions (cuobjdump -sass) | REG, static SHARED, LOCAL "
+          "(cuobjdump -res-usage)")
+    for lib in TC_LIBS:
+        path = str(builds[lib][0])
+        sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300, check=True).stdout
+        res = subprocess.run([tool, "-res-usage", path], capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+        usage = {m.group(1): m.groups()[1:] for m in re.finditer(
+            r"Function (\S+?):?\s*\n\s*REG:(\d+) STACK:\d+ SHARED:(\d+) LOCAL:(\d+)", res)}
+        counts, current = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = m.group(1)
+                counts[current] = [0, 0]
+            elif current is not None:
+                counts[current][0] += len(re.findall(r"\bHGMMA\b", line))
+                counts[current][1] += len(re.findall(r"\bHMMA\b", line))
+        tc = [k for k in counts if "convchain_tc_" in k]
+        if not tc:
+            raise RuntimeError(f"{lib}: no bf16 convchain kernel in the SASS")
+        for name, (hgmma, hmma) in sorted(counts.items(), key=lambda kv: _kernel_label(kv[0])):
+            reg, shared, local = usage.get(name, ("?", "?", "?"))
+            bad = "convchain_tc_" in name and hgmma + hmma == 0
+            print(f"  {lib}.cu {_kernel_label(name):36s} HGMMA {hgmma:4d} HMMA {hmma:4d} | REG {reg} SHARED "
+                  f"{shared} LOCAL {local}" + ("  <-- NO TENSOR-CORE INSTRUCTION" if bad else ""))
+            if bad:
+                raise RuntimeError(f"{name}: a bf16 convchain kernel without HGMMA or HMMA")
+
+
 # Kernel-name fragments of the device-time groups that profile_device sums
 KERNEL_GROUPS = (("swinblock fwd", ("swin_fwd",)), ("swinblock bwd launch 1", ("swin_bwd_rows",)),
                  ("swinblock bwd launch 2", ("swin_reduce",)), ("winattn", ("swin_winattn",)),
-                 ("ssimfused", ("ssim_",)), ("convchain", ("convchain_",)), ("rdtail", ("rdtail_",)),
+                 ("ssimfused", ("ssim_",)), ("convchain fwd", ("convchain_tc_fwd", "convchain_fwd")),
+                 ("convchain bwd dx", ("convchain_tc_dx", "convchain_bwd_dx")),
+                 ("convchain bwd dW", ("convchain_tc_dw", "convchain_bwd_dw")), ("rdtail", ("rdtail_",)),
+                 ("chanstats", ("dual_sums",)),
                  ("cuDNN / cuBLAS", ("cudnn", "conv", "gemm", "xmma", "cutlass", "sm90", "sm80", "fft", "winograd",
                                      "flip_filter", "complex", "region_transform", "wgrad", "dgrad", "fprop")))
 
@@ -378,7 +439,8 @@ def check_kernels(device, gen):
                 print(
                     f"  {str(dtype)[6:]:8s} {cin:4d}->{cout:4d} @{res:3d} prologue={int(prologue)} {counts}: "
                     + " ".join(f"{k} {e:.3g} (rel {r:.2g}) <= {b:.3g}" for k, (e, r, b) in errs.items())
-                    + f" | {k_ms:.4f} {p_ms:.4f} {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+                    + f" | {k_ms:.4f} {p_ms:.4f} {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), kernel "
+                    f"{2.0 * BATCH * res * res * 9 * cin * cout / k_ms / 1e9:.1f} TFLOP/s"
                     + ("" if ok else "  <-- DISAGREES")
                 )
                 if not ok:
@@ -435,7 +497,8 @@ def check_bwd(device, gen):
                 print(
                     f"  {str(dtype)[6:]:8s} {cin:4d}->{cout:4d} @{res:3d} prologue={int(prologue)} {counts}: "
                     + " ".join(f"{k} {e:.3g} (rel {r:.2g}) <= {b:.3g}" for k, (e, r, b) in errs.items())
-                    + f" | {k_ms:.4f} {p_ms:.4f} {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+                    + f" | {k_ms:.4f} {p_ms:.4f} {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), kernel "
+                    f"{4.0 * BATCH * res * res * 9 * cin * cout / k_ms / 1e9:.1f} TFLOP/s"
                     + ("" if ok else "  <-- DISAGREES")
                 )
                 if not ok:
@@ -1113,10 +1176,10 @@ def run_train(device, seed, card, root, kind):
                 if delta != per_step or not np.isfinite(losses[-1]):
                     raise RuntimeError(f"step {k}: launches {delta} (want {per_step}), loss {losses[-1]}")
                 k += 1
-        if kind == "SwinIR":  # one more step, traced
+        if kind == "SwinIR" or dtype == torch.bfloat16:  # one more step, traced
             before = _counts()
             profile_device(lambda: step(model, optimizer, hr_u8, None, generator, LR_RATE, n_valid, False),
-                           f"one SwinIR training step, {str(dtype)[6:]}")
+                           f"one {kind} training step, {str(dtype)[6:]}")
             delta = tuple(a - b for a, b in zip(_counts(), before))
             if delta != per_step:
                 raise RuntimeError(f"traced step: launches {delta} (want {per_step})")
@@ -1861,6 +1924,7 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("    " + line.strip())
+    check_sass(builds)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     fwd = check_kernels(device, gen)

@@ -18,21 +18,26 @@
 // once each plus the weights, against 3.35 TB/s.  At the ResUNet's shapes
 // (Cin, Cout >= 64) the operations bound it by a wide margin.
 //
-// Design: a direct convolution on the CUDA cores, kept simple and right
-// first.  A block owns an 8x8 tile of output pixels of one image and 64
-// output channels; 128 threads each hold 8 pixels of one row times 4
-// channels (32 f32 sums).  Input channels stream through shared memory in
-// chunks of 16: the 10x10 halo (prologue applied once per element, zero
-// padding outside the image) and the 9x16x64 weight slice.  Each input row
-// read from shared memory serves 3 taps x 8 pixels x 4 channels, each
-// float4 of weights 8 pixels x 4 channels.  The stats are reduced over the
-// block's rows in shared memory and added to s1/s2 with atomicAdd, so
-// their order of summation changes from run to run.  No tensor cores, no
-// TMA and no wgmma yet: that is the later work that closes the gap to the
-// bound.
+// Two routes, chosen by the wrapper from the dtype:
+// - bfloat16 (convchain_fwd_tc): an implicit GEMM on the tensor cores
+//   (wgmma), the mainloop of csrc/convchain_tc.cuh; see there.
+// - float32 (convchain_fwd): a direct convolution on the CUDA cores, since
+//   the tensor cores have no f32 product (TF32 would round the operands).
+//   A block owns an 8x8 tile of output pixels of one image and 64 output
+//   channels; 128 threads each hold 8 pixels of one row times 4 channels
+//   (32 f32 sums).  Input channels stream through shared memory in chunks
+//   of 16: the 10x10 halo (prologue applied once per element, zero padding
+//   outside the image) and the 9x16x64 weight slice.  Each input row read
+//   from shared memory serves 3 taps x 8 pixels x 4 channels, each float4
+//   of weights 8 pixels x 4 channels.
+// Both reduce the stats over the block in shared memory and add them to
+// s1/s2 with atomicAdd, so their order of summation changes from run to
+// run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "convchain_tc.cuh"
 
 namespace {
 
@@ -45,13 +50,9 @@ constexpr int HALO_H = TH + 2;
 constexpr int HALO_W = TW + 2;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Round a float to T and back: the value a T tensor would hold.
 template <typename T> __device__ __forceinline__ float round_to(float v) {
@@ -207,25 +208,73 @@ void launch(const void* x, const void* wk, const void* bias, const void* ab, voi
   }
 }
 
+template <int WG, int BN, bool RELU_IN>
+__global__ void __launch_bounds__(WG * 128, 2) convchain_tc_fwd_kernel(const cctc::ConvArgs p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  cctc::conv_tc_body<WG, BN, false, RELU_IN>(p, smem);
+}
+
+template <int WG, int BN>
+cudaError_t launch_tc_fwd(const cctc::ConvArgs& p, int relu_in, cudaStream_t stream) {
+  const dim3 grid((p.n_sub + WG - 1) / WG, (p.nch + BN - 1) / BN);
+  constexpr int bytes = cctc::ConvSmem<WG, BN, false>::BYTES;
+  static unsigned long long raised[2] = {0, 0};
+  if (relu_in)
+    return cctc::launch_tc(convchain_tc_fwd_kernel<WG, BN, true>, raised[1], grid, WG * 128, bytes, p, stream);
+  return cctc::launch_tc(convchain_tc_fwd_kernel<WG, BN, false>, raised[0], grid, WG * 128, bytes, p, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaGetLastError() code
-// after the launch (0 on success).  Pointers are device pointers; s1 and
-// s2 must be zeroed before the call; the launch goes on `stream` and does
-// not synchronise.
+// The float32 route (bfloat16 takes convchain_fwd_tc).  Returns the
+// cudaGetLastError() code after the launch (0 on success).  Pointers are
+// device pointers; s1 and s2 must be zeroed before the call; the launch
+// goes on `stream` and does not synchronise.
 extern "C" int convchain_fwd(const void* x, const void* wk, const void* bias, const void* ab,
                              void* y, void* s1, void* s2, int n, int h, int w, int cin, int cout,
-                             int dtype, int relu_in, void* stream) {
+                             int relu_in, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || n > 65535 ||
       (cout + TC - 1) / TC > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch<float>(x, wk, bias, ab, y, s1, s2, n, h, w, cin, cout, relu_in, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, wk, bias, ab, y, s1, s2, n, h, w, cin, cout, relu_in, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  launch<float>(x, wk, bias, ab, y, s1, s2, n, h, w, cin, cout, relu_in, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16 route on the tensor cores.  wk is (9, Cout, kpad) bf16,
+// K-major, zero for Cin <= k < kpad (kpad: Cin rounded up to 64); bias is
+// f32 (added as its bf16 rounding); (wg, bn)
+// is the tiling of ops/convchain.py:tc_plan: wg 8x8 pixel sub-tiles (1 or
+// 2) x bn output channels (64 or 128) a block.  Otherwise as
+// convchain_fwd.
+extern "C" int convchain_fwd_tc(const void* x, const void* wk, const void* bias, const void* ab, void* y,
+                                void* s1, void* s2, int n, int h, int w, int cin, int cout, int kpad,
+                                int relu_in, int wg, int bn, void* stream) {
+  const long long tiles_w = (w + cctc::TILE - 1) / cctc::TILE;
+  const long long tiles_img = tiles_w * ((h + cctc::TILE - 1) / cctc::TILE);
+  if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || kpad % cctc::KC != 0 || kpad < cin ||
+      kpad - cin >= cctc::KC || n * tiles_img > (1LL << 30) || (cout + bn - 1) / bn > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cctc::ConvArgs p{};
+  p.a0 = static_cast<const cctc::bf16*>(x);
+  p.wk = static_cast<const cctc::bf16*>(wk);
+  p.bias = static_cast<const float*>(bias);
+  p.ab = static_cast<const float*>(ab);
+  p.out = static_cast<cctc::bf16*>(y);
+  p.sum1 = static_cast<float*>(s1);
+  p.sum2 = static_cast<float*>(s2);
+  p.H = h;
+  p.W = w;
+  p.kch = cin;
+  p.nch = cout;
+  p.kpad = kpad;
+  p.wstride = kpad;
+  p.tiles_w = static_cast<int>(tiles_w);
+  p.tiles_per_img = static_cast<int>(tiles_img);
+  p.n_sub = static_cast<int>(n * tiles_img);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wg == 2 && bn == 128) return static_cast<int>(launch_tc_fwd<2, 128>(p, relu_in, s));
+  if (wg == 1 && bn == 128) return static_cast<int>(launch_tc_fwd<1, 128>(p, relu_in, s));
+  if (wg == 2 && bn == 64) return static_cast<int>(launch_tc_fwd<2, 64>(p, relu_in, s));
+  if (wg == 1 && bn == 64) return static_cast<int>(launch_tc_fwd<1, 64>(p, relu_in, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

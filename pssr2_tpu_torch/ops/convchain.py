@@ -9,7 +9,10 @@ Counterpart: pssr2_tpu/ops/pallas/convchain.py (``fused_conv_layer`` at
 layout; here activations stay NHWC and the kernels are
 ``csrc/convchain.cu`` (forward) and ``csrc/convchain_bwd.cu`` (backward,
 two launches: dx and d(a, b), then dW and dbias), built by
-``ops/cuda_build.py``.
+``ops/cuda_build.py``.  Each has two routes, picked from the dtype before
+the launch: bfloat16 runs an implicit GEMM on the tensor cores (wgmma;
+``csrc/convchain_tc.cuh``, tiled by :func:`tc_plan` and
+:func:`tc_dw_plan`), float32 a direct convolution on the CUDA cores.
 
 :func:`fused_conv_layer` is a ``torch.autograd.Function``: for a CUDA
 tensor its forward and backward launch those kernels; for a CPU tensor
@@ -31,7 +34,7 @@ from . import cuda_build
 launches = 0
 bwd_launches = 0
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 # Agreement of the kernel with reference_layer on the same inputs: bounds on
 # max |dy|, |ds1|, |ds2| as fractions of max |y|, of sum |y| and of sum y^2
@@ -54,9 +57,21 @@ BWD_TOLERANCE = {
     torch.float32: {"dx": 1e-4, "dw": 1e-4, "dbias": 1e-4, "dab": 1e-4},
     torch.bfloat16: {"dx": 1 / 64, "dw": 1e-4, "dbias": 1e-4, "dab": 1e-4},
 }
-# Blocks that the dW kernel aims to run (132 SMs x 8): the pixel reduction
-# is split over grid.z until the grid holds about this many.
+# Blocks that the f32 dW kernel aims to run (132 SMs x 8): the pixel
+# reduction is split over grid.z until the grid holds about this many.
 _DW_TARGET_BLOCKS = 1056
+# The bf16 (tensor-core) kernels: a sub-tile is TILE x TILE output pixels
+# (64 rows of M, one warpgroup's); K comes in chunks of K_CHUNK channels, to
+# which the weight layouts are zero-padded.  The forward and dx grids take
+# the largest tiles that still give about _TC_TARGET_BLOCKS blocks (two per
+# SM of 132); the dW grid (one block per SM at a time) splits its pixel
+# reduction until it holds _TC_DW_TARGET_BLOCKS, at most _TC_DW_MAX_SPLITS
+# ways (a sweep on the H100 found both limits).
+TILE = 8
+K_CHUNK = 64
+_TC_TARGET_BLOCKS = 256
+_TC_DW_TARGET_BLOCKS = 264
+_TC_DW_MAX_SPLITS = 64
 _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 
 
@@ -158,7 +173,7 @@ def bwd_errors(got, ref):
 @functools.cache
 def _fwd_fn():
     fn = cuda_build.load("convchain").convchain_fwd
-    fn.argtypes = [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P]
+    fn.argtypes = [_VOID_P] * 7 + [_INT] * 6 + [_VOID_P]
     fn.restype = _INT
     return fn
 
@@ -166,31 +181,115 @@ def _fwd_fn():
 @functools.cache
 def _bwd_fn():
     fn = cuda_build.load("convchain_bwd").convchain_bwd
-    fn.argtypes = [_VOID_P] * 10 + [_INT] * 8 + [_VOID_P]
+    fn.argtypes = [_VOID_P] * 10 + [_INT] * 7 + [_VOID_P]
     fn.restype = _INT
     return fn
 
 
+@functools.cache
+def _fwd_tc_fn():
+    fn = cuda_build.load("convchain").convchain_fwd_tc
+    fn.argtypes = [_VOID_P] * 7 + [_INT] * 9 + [_VOID_P]
+    fn.restype = _INT
+    return fn
+
+
+@functools.cache
+def _bwd_tc_fn():
+    fn = cuda_build.load("convchain_bwd").convchain_bwd_tc
+    fn.argtypes = [_VOID_P] * 12 + [_INT] * 11 + [_VOID_P]
+    fn.restype = _INT
+    return fn
+
+
+def _padded(n):
+    return -(-n // K_CHUNK) * K_CHUNK
+
+
 def kernel_weight(weight, dtype):
-    """(Cout, Cin, 3, 3) -> the kernel's (9, Cin, Cout) [tap][cin][cout]
-    layout, contiguous, in the activation dtype."""
+    """(Cout, Cin, 3, 3) -> the forward kernel's weight layout, contiguous,
+    in the activation dtype: for float32 (9, Cin, Cout) [tap][cin][cout]
+    (the CUDA-core kernel); for bfloat16 (9, Cout, Cin_pad) [tap][cout][cin],
+    K-major and zero for Cin <= k < Cin_pad (Cin rounded up to K_CHUNK), the
+    tensor-core kernel's B operand."""
     cout, cin = weight.shape[:2]
-    return weight.to(dtype).permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
+    if dtype == torch.float32:
+        return weight.to(dtype).permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
+    kpad = _padded(cin)
+    wk = torch.empty((9, cout, kpad), dtype=dtype, device=weight.device)
+    wk.view(3, 3, cout, kpad)[..., :cin].copy_(weight.permute(2, 3, 0, 1))
+    if kpad > cin:
+        wk[..., cin:].zero_()
+    return wk
+
+
+def kernel_weight_dx(weight):
+    """(Cout, Cin, 3, 3) -> the f32 dx kernel's weight layout (9, Cout,
+    Cin) [8 - tap][cout][cin], contiguous: the taps flipped (the dx pass is
+    a forward conv of the cotangent).  The bf16 dx kernel reads
+    :func:`kernel_weight`'s layout at tap 8 - t instead, as [cout][cin]."""
+    cout, cin = weight.shape[:2]
+    return weight.float().flip(2, 3).permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
 
 
 def _dw_splits(n, h, w, cin, cout):
-    """Blocks that share each dW tile's pixel reduction (grid.z of the dW
-    kernel): enough for about ``_DW_TARGET_BLOCKS`` blocks, at most one
-    8x8 pixel tile each."""
+    """Blocks that share each f32 dW tile's pixel reduction (grid.z of the
+    f32 dW kernel): enough for about ``_DW_TARGET_BLOCKS`` blocks, at most
+    one 8x8 pixel tile each."""
     tiles = n * -(-h // 8) * -(-w // 8)
     blocks = -(-cin // 16) * -(-cout // 64)
     return max(1, min(tiles, 65535, -(-_DW_TARGET_BLOCKS // blocks)))
 
 
+def sub_tiles(n, h, w):
+    """Number of TILE x TILE pixel sub-tiles of an (n, h, w) batch."""
+    return n * -(-h // TILE) * -(-w // TILE)
+
+
+def sub_tile_origin(t, n, h, w):
+    """(image, first row, first column) of sub-tile ``t``: image by image,
+    row-major inside an image, as the kernels number them
+    (``csrc/convchain_tc.cuh:sub_origin``)."""
+    tiles_w = -(-w // TILE)
+    per_img = tiles_w * -(-h // TILE)
+    img, r = divmod(t, per_img)
+    return img, (r // tiles_w) * TILE, (r % tiles_w) * TILE
+
+
+@functools.cache
+def tc_plan(n, h, w, nch):
+    """Tiling of the bf16 forward (``nch`` = Cout) or dx (``nch`` = Cin)
+    kernel: ``(wg, bn, (grid_x, grid_y))``.  Block (bx, by) computes
+    channels [by * bn, by * bn + bn) of sub-tiles bx * wg + i, i < wg, one
+    warpgroup each.  The first of (2, 128), (1, 128), (1, 64) (with nch <=
+    64: (2, 64), (1, 64)) that gives _TC_TARGET_BLOCKS blocks, else the
+    last."""
+    n_sub = sub_tiles(n, h, w)
+    configs = ((2, 64), (1, 64)) if nch <= 64 else ((2, 128), (1, 128), (1, 64))
+    for wg, bn in configs:
+        grid = (-(-n_sub // wg), -(-nch // bn))
+        if grid[0] * grid[1] >= _TC_TARGET_BLOCKS:
+            break
+    return wg, bn, grid
+
+
+@functools.cache
+def tc_dw_plan(n, h, w, cin, cout):
+    """Grid of the bf16 dW kernel: ``(grid_x, grid_y, splits)``.  Block
+    (bx, by, bz) computes all 9 taps of dW for Cin rows [64 bx, + 64) and
+    Cout columns [64 by, + 64), summed over sub-tiles bz, bz + splits, ...;
+    splits grows until the grid holds _TC_DW_TARGET_BLOCKS blocks, at most
+    _TC_DW_MAX_SPLITS: more partial sums of one dW entry contend in its
+    atomics more than their blocks gain."""
+    grid = (-(-cin // 64), -(-cout // 64))
+    splits = -(-_TC_DW_TARGET_BLOCKS // (grid[0] * grid[1]))
+    return (*grid, max(1, min(sub_tiles(n, h, w), _TC_DW_MAX_SPLITS, splits)))
+
+
 def _check(x, weight, bias, ab):
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_layer takes CPU or CUDA tensors, got {x.device}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"fused_conv_layer takes float32 or bfloat16 activations, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("fused_conv_layer takes a contiguous (N, H, W, Cin) tensor")
@@ -212,75 +311,93 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_fwd(x, weight, bias, ab):
+def _launch_fwd(x, weight, bias, ab, wk=None):
+    """The forward launch; ``wk``: :func:`kernel_weight` of ``weight`` where
+    the caller holds it."""
     global launches
     n, h, w, cin = x.shape
     cout = weight.shape[0]
-    wk = kernel_weight(weight, x.dtype)
-    bk = bias.to(x.dtype).contiguous()
+    wk = kernel_weight(weight, x.dtype) if wk is None else wk
+    bk = bias.float().contiguous()
     abk = ab.contiguous() if ab is not None else None
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    s1 = torch.zeros(cout, dtype=torch.float32, device=x.device)
-    s2 = torch.zeros(cout, dtype=torch.float32, device=x.device)
-    fn = _fwd_fn()
+    s1, s2 = torch.zeros((2, cout), dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), abk.data_ptr() if abk is not None else None,
+            y.data_ptr(), s1.data_ptr(), s2.data_ptr())
     with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), wk.data_ptr(), bk.data_ptr(), abk.data_ptr() if abk is not None else None,
-            y.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-            n, h, w, cin, cout, _DTYPE_CODE[x.dtype], int(abk is not None), _stream(x.device),
-        )
+        if x.dtype == torch.bfloat16:
+            wg, bn, _ = tc_plan(n, h, w, cout)
+            err = _fwd_tc_fn()(*ptrs, n, h, w, cin, cout, wk.shape[2], int(abk is not None), wg, bn,
+                               _stream(x.device))
+        else:
+            err = _fwd_fn()(*ptrs, n, h, w, cin, cout, int(abk is not None), _stream(x.device))
     if err != 0:
         raise RuntimeError(f"convchain_fwd launch failed with CUDA error {err}")
     launches += 1
     return y, s1, s2
 
 
-def _launch_bwd(x, weight, y, gy, gs1, gs2, ab):
+def _launch_bwd(x, weight, y, gy, gs1, gs2, ab, wk=None):
+    """The two backward launches; ``wk``: the bf16 forward's
+    :func:`kernel_weight` of ``weight`` where the caller holds it."""
     global bwd_launches
     n, h, w, cin = x.shape
     cout = weight.shape[0]
-    # (9, Cout, Cin), taps flipped: the dx pass is a forward conv of g
-    wt = weight.to(x.dtype).flip(2, 3).permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
     gy = gy.to(x.dtype).contiguous()
-    gs = torch.stack([gs1, gs2]).float().contiguous()
     abk = ab.contiguous() if ab is not None else None
-    f32 = {"dtype": torch.float32, "device": x.device}
     dx = torch.empty_like(x)
-    dw = torch.zeros((9, cin, cout), **f32)
-    dbias = torch.zeros(cout, **f32)
-    dab = torch.zeros((2, cin), **f32) if ab is not None else None
-    fn = _bwd_fn()
+    # dW, dbias and d(a, b), summed by atomics: one zeroed buffer
+    sums = torch.zeros(9 * cin * cout + cout + 2 * cin, dtype=torch.float32, device=x.device)
+    dbias = sums[9 * cin * cout:9 * cin * cout + cout]
+    dab = sums[9 * cin * cout + cout:].view(2, cin) if ab is not None else None
+    outs = (abk.data_ptr() if abk is not None else None, dx.data_ptr(), sums.data_ptr(), dbias.data_ptr(),
+            dab.data_ptr() if dab is not None else None)
     with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), wt.data_ptr(), y.data_ptr(), gy.data_ptr(), gs.data_ptr(),
-            abk.data_ptr() if abk is not None else None, dx.data_ptr(), dw.data_ptr(),
-            dbias.data_ptr(), dab.data_ptr() if dab is not None else None,
-            n, h, w, cin, cout, _DTYPE_CODE[x.dtype], int(abk is not None),
-            _dw_splits(n, h, w, cin, cout), _stream(x.device),
-        )
+        if x.dtype == torch.bfloat16:
+            wk = kernel_weight(weight, x.dtype) if wk is None else wk
+            g = torch.empty((n, h, w, _padded(cout)), dtype=x.dtype, device=x.device)  # the folded cotangent
+            dx_wg, dx_bn, _ = tc_plan(n, h, w, cin)
+            gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
+            err = _bwd_tc_fn()(x.data_ptr(), wk.data_ptr(), y.data_ptr(), gy.data_ptr(), gs1.data_ptr(),
+                               gs2.data_ptr(), *outs, g.data_ptr(), n, h, w, cin, cout, wk.shape[2], g.shape[3],
+                               int(abk is not None), dx_wg, dx_bn, tc_dw_plan(n, h, w, cin, cout)[2],
+                               _stream(x.device))
+            dw = sums[:9 * cin * cout].view(cout, cin, 3, 3)  # the kernel's own order
+        else:
+            wt = kernel_weight_dx(weight)
+            gs = torch.stack([gs1, gs2]).float().contiguous()
+            err = _bwd_fn()(x.data_ptr(), wt.data_ptr(), y.data_ptr(), gy.data_ptr(), gs.data_ptr(), *outs,
+                            n, h, w, cin, cout, int(abk is not None), _dw_splits(n, h, w, cin, cout),
+                            _stream(x.device))
+            # (9, Cin, Cout) [ky*3+kx][ci][co] -> (Cout, Cin, 3, 3)
+            dw = sums[:9 * cin * cout].view(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
     if err != 0:
         raise RuntimeError(f"convchain_bwd launch failed with CUDA error {err}")
     bwd_launches += 2
-    # (9, Cin, Cout) [ky*3+kx][ci][co] -> (Cout, Cin, 3, 3)
-    return dx, dw.view(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous(), dbias, dab
+    return dx, dw, dbias, dab
 
 
 class _FusedLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, ab):
+        wk = None
         if x.device.type == "cpu":
             y, s1, s2 = reference_layer(x, weight, bias, ab)
         else:
             _check(x, weight, bias, ab)
-            y, s1, s2 = _launch_fwd(x, weight, bias, ab)
-        ctx.save_for_backward(x, weight, ab, y)
+            if x.dtype == torch.bfloat16:  # kept for the backward, which reads the same layout
+                wk = kernel_weight(weight, x.dtype)
+            y, s1, s2 = _launch_fwd(x, weight, bias, ab, wk)
+        ctx.save_for_backward(x, weight, ab, y, wk)
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, gy, gs1, gs2):
-        x, weight, ab, y = ctx.saved_tensors
-        bwd = reference_layer_bwd if x.device.type == "cpu" else _launch_bwd
-        dx, dw, dbias, dab = bwd(x, weight, y, gy, gs1, gs2, ab)
+        x, weight, ab, y, wk = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, dw, dbias, dab = reference_layer_bwd(x, weight, y, gy, gs1, gs2, ab)
+        else:
+            dx, dw, dbias, dab = _launch_bwd(x, weight, y, gy, gs1, gs2, ab, wk)
         return dx, dw.to(weight.dtype), dbias.to(weight.dtype), dab
 
 

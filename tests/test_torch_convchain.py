@@ -119,8 +119,84 @@ def test_cpu_tensor_takes_plain_version():
 
 
 def test_kernel_weight_layout():
-    """The kernel's (9, Cin, Cout) weight layout is convnhwc's kernel_taps of
-    the HWIO kernel."""
+    """The forward kernels' weight layouts are convnhwc's kernel_taps of the
+    HWIO kernel: (9, Cin, Cout) for the f32 route; for the bf16 route
+    (9, Cout, Cin_pad), K-major, Cin zero-padded to the K chunk."""
     _, k, _, _ = _inputs(5, 8)
-    wk = tconvchain.kernel_weight(torch.from_numpy(np.transpose(k, (3, 2, 0, 1)).copy()), torch.float32)
-    np.testing.assert_array_equal(wk.numpy(), np.asarray(convnhwc.kernel_taps(jnp.asarray(k))))
+    taps = np.asarray(convnhwc.kernel_taps(jnp.asarray(k)))
+    weight = torch.from_numpy(np.transpose(k, (3, 2, 0, 1)).copy())
+    np.testing.assert_array_equal(tconvchain.kernel_weight(weight, torch.float32).numpy(), taps)
+    wk = tconvchain.kernel_weight(weight, torch.bfloat16)
+    assert wk.shape == (9, COUT, tconvchain.K_CHUNK) and wk.dtype == torch.bfloat16 and wk.is_contiguous()
+    want = torch.from_numpy(taps.transpose(0, 2, 1).copy()).to(torch.bfloat16)
+    assert torch.equal(wk[:, :, :8], want)
+    assert not wk[:, :, 8:].any()
+
+
+def test_kernel_weight_dx_layout():
+    """The dx kernels read kernel_taps with the taps flipped: the f32 one
+    its own (9, Cout, Cin) layout; the bf16 one the forward's bf16 layout at
+    tap 8 - t, as [Cout][Cin], with the Cin pad zero."""
+    _, k, _, _ = _inputs(6, 8)
+    flipped = np.asarray(convnhwc.kernel_taps(jnp.asarray(k)))[::-1]  # (9, Cin, Cout), tap 8 - t
+    weight = torch.from_numpy(np.transpose(k, (3, 2, 0, 1)).copy())
+    np.testing.assert_array_equal(tconvchain.kernel_weight_dx(weight).numpy(), flipped.transpose(0, 2, 1))
+    wk = tconvchain.kernel_weight(weight, torch.bfloat16)
+    read = wk.flip(0)  # what the bf16 dx kernel reads at tap t: wk[8 - t], [Cout][Cin_pad]
+    want = torch.from_numpy(flipped.transpose(0, 2, 1).copy()).to(torch.bfloat16)
+    assert torch.equal(read[:, :, :8], want) and not read[:, :, 8:].any()
+
+
+# (n, h, w, Cin, Cout): ragged H and W, channel counts off the tiles, the
+# model's small 8x8 grid at batch 16, and wide RDResUNet layers
+PLAN_SHAPES = [(2, 9, 20, 40, 192), (1, 8, 8, 1, 64), (3, 13, 7, 200, 72), (16, 8, 8, 1024, 1024),
+               (16, 16, 16, 1000, 1024), (16, 32, 32, 728, 512), (2, 17, 33, 24, 33)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tc_plan_covers_every_output_once(shape):
+    """The bf16 forward and dx grids, read as the kernels read them, cover
+    every (pixel, channel) of their output exactly once."""
+    n, h, w, cin, cout = shape
+    for nch in (cout, cin):  # the forward's N is Cout, dx's Cin
+        wg, bn, (gx, gy) = tconvchain.tc_plan(n, h, w, nch)
+        assert wg in (1, 2) and bn in (64, 128) and gy <= 65535
+        count = np.zeros((n, h, w, nch), np.uint8)
+        for bx in range(gx):
+            for i in range(wg):
+                t = bx * wg + i
+                if t >= tconvchain.sub_tiles(n, h, w):
+                    continue
+                img, h0, w0 = tconvchain.sub_tile_origin(t, n, h, w)
+                for by in range(gy):
+                    count[img, h0:h0 + tconvchain.TILE, w0:w0 + tconvchain.TILE, by * bn:by * bn + bn] += 1
+        assert (count == 1).all()
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tc_dw_plan_covers_every_term_once(shape):
+    """The bf16 dW grid sums every (tap, Cin, Cout) entry over every pixel
+    exactly once: its blocks split the channels and the sub-tiles without
+    gaps or overlaps (each block takes all 9 taps)."""
+    n, h, w, cin, cout = shape
+    gx, gy, splits = tconvchain.tc_dw_plan(n, h, w, cin, cout)
+    n_sub = tconvchain.sub_tiles(n, h, w)
+    assert gy <= 65535 and 1 <= splits <= min(n_sub, 65535)
+    # a block covers its Cin rows x its Cout columns x its sub-tiles: the
+    # grid covers each term once iff each factor does
+    rows = np.zeros(cin, np.int64)
+    for bx in range(gx):
+        rows[64 * bx:64 * bx + 64] += 1
+    cols = np.zeros(cout, np.int64)
+    for by in range(gy):
+        cols[64 * by:64 * by + 64] += 1
+    subs = np.zeros(n_sub, np.int64)
+    for bz in range(splits):
+        subs[bz::splits] += 1
+    assert (rows == 1).all() and (cols == 1).all() and (subs == 1).all()
+    # and the sub-tiles tile the image: each pixel in exactly one
+    cover = np.zeros((n, h, w), np.int64)
+    for t in range(n_sub):
+        img, h0, w0 = tconvchain.sub_tile_origin(t, n, h, w)
+        cover[img, h0:h0 + tconvchain.TILE, w0:w0 + tconvchain.TILE] += 1
+    assert (cover == 1).all()

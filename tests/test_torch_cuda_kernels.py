@@ -124,6 +124,66 @@ def test_convchain_autograd_goes_through_kernels(device):
         assert err <= bound, f"{name}: max abs error {err} > {bound}"
 
 
+# (N, Cin, Cout, H, W) at the edges of the bf16 kernels' tiling: Cin not a
+# multiple of the 64-channel K chunk (as 728 and 1000 are), Cout leaving a
+# partial N tile, W and H off the 8x8 sub-tile, an odd Cout (single-element
+# stores), the 8x8 image at batch 16 (the small-grid tiling), and a real
+# RDResUNet width at batch 16
+EDGE_SHAPES = [(2, 40, 192, 9, 20), (2, 200, 72, 8, 12), (2, 24, 33, 11, 8), (16, 64, 128, 8, 8),
+               (16, 448, 256, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("relu_in", [True, False], ids=["prologue", "entry"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_convchain_tiling_edges_match_plain(device, shape, relu_in, dtype):
+    """Forward and backward against the plain versions at the tiling's
+    edges, within the unchanged TOLERANCE and BWD_TOLERANCE."""
+    n, cin, cout, h, w = shape
+    g = torch.Generator(device="cpu").manual_seed(n + cin + cout)
+    x = torch.randn(n, h, w, cin, generator=g).to(device, dtype)
+    weight = (torch.randn(cout, cin, 3, 3, generator=g) / (3 * cin**0.5)).to(device)
+    bias = (0.1 * torch.randn(cout, generator=g)).to(device)
+    ab = None
+    if relu_in:
+        ab = torch.stack([torch.rand(cin, generator=g) + 0.5, 0.3 * torch.randn(cin, generator=g)]).to(device)
+    with torch.no_grad():
+        got = convchain.fused_conv_layer(x, weight, bias, ab)
+        ref = convchain.reference_layer(x, weight, bias, ab)
+        torch.cuda.synchronize()
+        for name, (err, _, bound) in convchain.errors(got, ref).items():
+            assert err <= bound, f"forward {name}: max abs error {err} > {bound}"
+        y = got[0]
+        gy, gs1, gs2 = _cotangents(device, dtype, y)
+        got_b = convchain._launch_bwd(x, weight, y, gy, gs1, gs2, ab)
+        ref_b = convchain.reference_layer_bwd(x, weight, y, gy, gs1, gs2, ab)
+    torch.cuda.synchronize()
+    for name, (err, _, bound) in convchain.bwd_errors(got_b, ref_b).items():
+        assert err <= bound, f"backward {name}: max abs error {err} > {bound}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_convchain_launches_per_call(device, dtype):
+    """Either route adds exactly 1 forward launch a call and 2 backward
+    launches (dx with d(a, b), then dW with dbias) under autograd, and its
+    gradients match the plain backward."""
+    x, weight, bias, ab = _inputs(device, dtype, 64, 96, 16, 16, True)
+    x, weight, bias, ab = (t.clone().requires_grad_() for t in (x, weight, bias, ab))
+    f0, b0 = convchain.launches, convchain.bwd_launches
+    y, s1, s2 = convchain.fused_conv_layer(x, weight, bias, ab)
+    assert (convchain.launches, convchain.bwd_launches) == (f0 + 1, b0)
+    (y.float().square().sum() + s1.sum() + 0.5 * s2.sum()).backward()
+    torch.cuda.synchronize()
+    assert (convchain.launches, convchain.bwd_launches) == (f0 + 1, b0 + 2)
+    with torch.no_grad():
+        ref = convchain.reference_layer_bwd(
+            x, weight, y, 2 * y, torch.ones_like(s1), torch.full_like(s2, 0.5), ab
+        )
+    got = (x.grad, weight.grad, bias.grad, ab.grad)
+    for name, (err, _, bound) in convchain.bwd_errors(got, ref).items():
+        assert err <= bound, f"{name}: max abs error {err} > {bound}"
+
+
 def _ssim_inputs(device, shape, seed=0, scale=1.0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     y = torch.rand(shape, generator=g)
