@@ -7,10 +7,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the CUDA kernel sources are compiled with nvcc, all at once
-   (seconds, registers and spills printed); then the SASS of the convchain
-   libraries (``cuobjdump``): each kernel's HGMMA (wgmma) and HMMA
-   (mma.sync) count beside its registers, shared memory and local bytes,
-   failing if cuobjdump is missing or a bf16 convchain kernel has neither;
+   (seconds, registers and spills printed); then the SASS of the libraries
+   with tensor-core kernels, convchain and rdtail (``cuobjdump``): each
+   kernel's HGMMA (wgmma) and HMMA (mma.sync) count beside its registers,
+   shared memory and local bytes, failing if cuobjdump is missing or a
+   tensor-core kernel (a name with ``_tc_``) has no HGMMA;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with times (CUDA events), its bound
    and a library yardstick: the convchain forward and backward at every
@@ -22,8 +23,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    bf16 ssim call, which takes the band-matrix path; the convchain shapes
    include the RDResUNet decoder's; the RDNet block tail forward and
    backward at the 21 dense blocks' shapes of the full-width RDResUNet x4
-   at batch 16, in f32 and bf16; the whole Swin block forward (eval and
-   with DropPath keep-scales) and backward at the default SwinIR's blocks
+   at batch 16, in f32 and bf16 (every bf16 one on the tensor-core route,
+   each shape's route and TFLOP/s printed); the whole Swin block forward
+   (eval and with DropPath keep-scales) and backward at the default SwinIR's blocks
    at batch 16 ((16, 128, 128, 96), unshifted and shifted), in f32 and
    bf16; the window attention at those windows (4,096 x 64 x 288) and at
    the SwinIR-L widths (C 240, 8 heads), masked and unmasked; the soft
@@ -229,30 +231,32 @@ def cuda_ms(fn, reps=10):
 
 
 # The libraries whose bf16 kernels run on the tensor cores; a kernel of
-# theirs is a bf16 one exactly when its name holds "convchain_tc_"
-TC_LIBS = ("convchain", "convchain_bwd")
+# theirs is a tensor-core one exactly when its name holds "_tc_"
+TC_LIBS = ("convchain", "convchain_bwd", "rdtail")
 
 
 def _kernel_label(mangled):
     """convchain_tc_fwd_kernel<2,128,1> from the mangled name."""
-    m = re.search(r"\d(convchain\w*?_kernel)I(\w*?)EE?v", mangled)
+    m = re.search(r"\d((?:convchain|rdtail)\w*?_kernel)(?:I(\w*?)E)?E", mangled)
     if not m:
         return mangled[:60]
-    args = ["float"] if m.group(2).startswith("f") else []
-    return f"{m.group(1)}<{','.join(args + re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+    targs = m.group(2) or ""
+    args = ["float"] if targs.startswith("f") else ["bf16"] if "bfloat16" in targs else []
+    args += re.findall(r"L[ib](\d+)E", targs + "E")
+    return f"{m.group(1)}<{','.join(args)}>" if m.group(2) is not None else m.group(1)
 
 
 def check_sass(builds):
     """Phase 2b: each kernel of TC_LIBS with its count of HGMMA (wgmma) and
     HMMA (mma.sync) instructions in the SASS, its registers, shared memory
     (static) and local (spill) bytes (``cuobjdump -sass`` and
-    ``-res-usage``).  Fails if cuobjdump is missing, or a bf16 kernel has
-    neither instruction."""
+    ``-res-usage``).  Fails if cuobjdump is missing, a library has no
+    tensor-core kernel, or a tensor-core kernel has no HGMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        raise RuntimeError("cuobjdump not found: the SASS of the convchain kernels cannot be checked")
-    print("phase sass: convchain kernels, tensor-core instructions (cuobjdump -sass) | REG, static SHARED, LOCAL "
-          "(cuobjdump -res-usage)")
+        raise RuntimeError("cuobjdump not found: the SASS of the tensor-core kernels cannot be checked")
+    print("phase sass: convchain and rdtail kernels, tensor-core instructions (cuobjdump -sass) | REG, static SHARED, "
+          "LOCAL (cuobjdump -res-usage)")
     for lib in TC_LIBS:
         path = str(builds[lib][0])
         sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300, check=True).stdout
@@ -269,16 +273,16 @@ def check_sass(builds):
             elif current is not None:
                 counts[current][0] += len(re.findall(r"\bHGMMA\b", line))
                 counts[current][1] += len(re.findall(r"\bHMMA\b", line))
-        tc = [k for k in counts if "convchain_tc_" in k]
+        tc = [k for k in counts if "_tc_" in k]
         if not tc:
-            raise RuntimeError(f"{lib}: no bf16 convchain kernel in the SASS")
+            raise RuntimeError(f"{lib}: no tensor-core kernel in the SASS")
         for name, (hgmma, hmma) in sorted(counts.items(), key=lambda kv: _kernel_label(kv[0])):
             reg, shared, local = usage.get(name, ("?", "?", "?"))
-            bad = "convchain_tc_" in name and hgmma + hmma == 0
+            bad = "_tc_" in name and hgmma == 0
             print(f"  {lib}.cu {_kernel_label(name):36s} HGMMA {hgmma:4d} HMMA {hmma:4d} | REG {reg} SHARED "
-                  f"{shared} LOCAL {local}" + ("  <-- NO TENSOR-CORE INSTRUCTION" if bad else ""))
+                  f"{shared} LOCAL {local}" + ("  <-- NO HGMMA" if bad else ""))
             if bad:
-                raise RuntimeError(f"{name}: a bf16 convchain kernel without HGMMA or HMMA")
+                raise RuntimeError(f"{name}: a tensor-core kernel without HGMMA")
 
 
 # Kernel-name fragments of the device-time groups that profile_device sums
@@ -286,7 +290,11 @@ KERNEL_GROUPS = (("swinblock fwd", ("swin_fwd",)), ("swinblock bwd launch 1", ("
                  ("swinblock bwd launch 2", ("swin_reduce",)), ("winattn", ("swin_winattn",)),
                  ("ssimfused", ("ssim_",)), ("convchain fwd", ("convchain_tc_fwd", "convchain_fwd")),
                  ("convchain bwd dx", ("convchain_tc_dx", "convchain_bwd_dx")),
-                 ("convchain bwd dW", ("convchain_tc_dw", "convchain_bwd_dw")), ("rdtail", ("rdtail_",)),
+                 ("convchain bwd dW", ("convchain_tc_dw", "convchain_bwd_dw")),
+                 ("rdtail fwd", ("rdtail_tc_fwd", "rdtail_fwd")),
+                 ("rdtail bwd rows", ("rdtail_tc_rows", "rdtail_bwd_rows")),
+                 ("rdtail bwd GEMMs (dh, dW)", ("rdtail_tc_dh", "rdtail_tc_dw", "rdtail_dw")),
+                 ("rdtail LayerNorm bwd", ("rdtail_ln_bwd",)),
                  ("chanstats", ("dual_sums",)),
                  ("cuDNN / cuBLAS", ("cudnn", "conv", "gemm", "xmma", "cutlass", "sm90", "sm80", "fft", "winograd",
                                      "flip_filter", "complex", "region_transform", "wgrad", "dgrad", "fprop")))
@@ -539,13 +547,17 @@ def check_rdtail(device, gen):
     from pssr2_tpu_torch.ops import rdtail
 
     print(
-        f"phase kernels: rdtail forward (1 launch) and backward (2 launches) vs plain at the dense blocks' "
-        f"shapes (batch {BATCH}): max abs error (relative) <= bound | ms of kernel, plain, library; bound"
+        f"phase kernels: rdtail forward (1 launch) and backward (tensor cores {rdtail.BWD_LAUNCHES['tc']} launches, "
+        f"CUDA cores {rdtail.BWD_LAUNCHES['cuda_core']}) vs plain at the dense blocks' shapes (batch {BATCH}): "
+        "route, max abs error (relative) <= bound | ms of kernel, plain, library; bound; kernel TFLOP/s"
     )
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
         tot = {"fwd": _new_totals(), "bwd": _new_totals()}
         for m, c, inter, g in rd_shapes()[1]:
+            route = rdtail.route(c, inter, g, dtype)
+            if route != ("tc" if dtype == torch.bfloat16 else "cuda_core"):
+                raise RuntimeError(f"rdtail {dtype} at {(m, c, inter, g)} takes the {route} route")
             x = torch.randn(m, c, device=device, generator=gen).to(dtype)
             params = (
                 1.0 + 0.1 * torch.randn(c, device=device, generator=gen),
@@ -564,9 +576,13 @@ def check_rdtail(device, gen):
                 return F.linear(F.gelu(F.linear(h, pl[2], pl[3])), pl[4], pl[5])
 
             with torch.no_grad():
+                counts = (rdtail.tc_launches, rdtail.tc_bwd_launches)
                 got = rdtail._launch_fwd(x, params, RD_EPS)
                 ref = rdtail.reference_tail(x, *params, eps=RD_EPS)
                 got_b = rdtail._launch_bwd(x, params, gout, RD_EPS)
+                tc = (rdtail.tc_launches - counts[0], rdtail.tc_bwd_launches - counts[1])
+                if tc != ((1, rdtail.BWD_LAUNCHES["tc"]) if route == "tc" else (0, 0)):
+                    raise RuntimeError(f"rdtail at {(m, c, inter, g)}: {tc} tensor-core launches on the {route} route")
                 ref_b = rdtail.reference_tail_bwd(x, *params, gout, eps=RD_EPS)
                 torch.cuda.synchronize()
                 err_f = rdtail.errors(got, ref)
@@ -587,7 +603,7 @@ def check_rdtail(device, gen):
             for kind, ok, times, errs in (("fwd", ok_f, times_f, {"out": err_f}), ("bwd", ok_b, times_b, errs_b)):
                 b_ms, b_by, ops = tail_bound_ms(m, c, inter, g, dtype, kind == "bwd")
                 print(
-                    f"  {str(dtype)[6:]:8s} {kind} M {m:5d} C {c:3d} inter {inter:4d} G {g:3d}: "
+                    f"  {str(dtype)[6:]:8s} {kind} M {m:5d} C {c:3d} inter {inter:4d} G {g:3d} {route:9s}: "
                     + " ".join(f"{k} {e:.3g} (rel {r:.2g}) <= {b:.3g}" for k, (e, r, b) in errs.items())
                     + f" | {times[0]:.4f} {times[1]:.4f} {times[2]:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                     f"{ops / times[0] / 1e9:.2f} TFLOP/s" + ("" if ok else "  <-- DISAGREES")
@@ -989,13 +1005,13 @@ def run_slice(device, seed, card, root, tmp, kind, calls=("first", "second")):
     if dataset.is_lr or len(dataset) != TILES:
         raise RuntimeError(f"dataset: is_lr={dataset.is_lr}, {len(dataset)} items")
     batches = -(-TILES // BATCH)
-    # per forward: the model's convchain, rdtail, swinblock or winattn forwards, nothing else
-    per_fwd = tuple(n if c in ("convchain_fwd", "rdtail_fwd", "swinblock_fwd", "winattn") else 0
-                    for c, n in zip(COUNTERS, _per_step(train=False, kind=kind)))
-    want = tuple(batches * n for n in per_fwd)
     n_cpu = CPU_TILES[kind]
 
     for dtype in (torch.float32, torch.bfloat16):
+        # per forward: the model's convchain, rdtail, swinblock or winattn forwards, nothing else
+        per_fwd = tuple(n if c in ("convchain_fwd", "rdtail_fwd", "rdtail_tc_fwd", "swinblock_fwd", "winattn") else 0
+                        for c, n in zip(COUNTERS, _per_step(train=False, kind=kind, dtype=dtype)))
+        want = tuple(batches * n for n in per_fwd)
         model = _model(state, dtype, device, kind, train=False)
         out_dir = Path(tmp, f"preds_{kind}_{str(dtype)[6:]}")
         launches[dtype] = (0,) * len(COUNTERS)
@@ -1055,8 +1071,8 @@ def run_slice(device, seed, card, root, tmp, kind, calls=("first", "second")):
 
 # the launch counters, in the order of _counts()
 COUNTERS = ("convchain_fwd", "convchain_bwd", "ssim_fwd", "ssim_bwd", "ssim_pool_fwd", "ssim_pool_bwd",
-            "ssim_l0_fwd", "ssim_l0_bwd", "rdtail_fwd", "rdtail_bwd", "swinblock_fwd", "swinblock_bwd", "winattn",
-            "chanstats", "gradhist_fwd", "gradhist_bwd", "q8conv")
+            "ssim_l0_fwd", "ssim_l0_bwd", "rdtail_fwd", "rdtail_bwd", "rdtail_tc_fwd", "rdtail_tc_bwd",
+            "swinblock_fwd", "swinblock_bwd", "winattn", "chanstats", "gradhist_fwd", "gradhist_bwd", "q8conv")
 # f32 tiles of the serving phase held against the CPU, per model
 CPU_TILES = {"ResUNet": 2, "RDResUNet": 1, "SwinIR": 1, "SwinIR-L": 1}
 
@@ -1066,7 +1082,8 @@ def _counts():
 
     return (convchain.launches, convchain.bwd_launches, ssimfused.fwd_launches, ssimfused.bwd_launches,
             ssimfused.pool_fwd_launches, ssimfused.pool_bwd_launches, ssimfused.l0_fwd_launches,
-            ssimfused.l0_bwd_launches, rdtail.launches, rdtail.bwd_launches, swinblock.launches,
+            ssimfused.l0_bwd_launches, rdtail.launches, rdtail.bwd_launches, rdtail.tc_launches,
+            rdtail.tc_bwd_launches, swinblock.launches,
             swinblock.bwd_launches, winattn.launches, chanstats.launches, gradhist.launches, gradhist.bwd_launches,
             q8chain.launches)
 
@@ -1078,17 +1095,18 @@ def _reset_counts():
     ssimfused.fwd_launches = ssimfused.bwd_launches = 0
     ssimfused.pool_fwd_launches = ssimfused.pool_bwd_launches = 0
     ssimfused.l0_fwd_launches = ssimfused.l0_bwd_launches = 0
-    rdtail.launches = rdtail.bwd_launches = 0
+    rdtail.launches = rdtail.bwd_launches = rdtail.tc_launches = rdtail.tc_bwd_launches = 0
     swinblock.launches = swinblock.bwd_launches = winattn.launches = 0
     chanstats.launches = gradhist.launches = gradhist.bwd_launches = q8chain.launches = 0
 
 
 @functools.cache
-def _per_step(train=True, metrics=False, kind="ResUNet"):
-    """Launches of one step of the full-width model with the MS-SSIM loss:
-    its convchain forwards (ResUNet 36, RDResUNet 16) and 2 backward
-    launches a layer; RDResUNet's 21 rdtail forwards and 2 backward
-    launches each; SwinIR's 16 swinblock forwards and 2 backward launches
+def _per_step(train=True, metrics=False, kind="ResUNet", dtype=torch.bfloat16):
+    """Launches of one step of the full-width model in ``dtype`` with the
+    MS-SSIM loss: its convchain forwards (ResUNet 36, RDResUNet 16) and 2
+    backward launches a layer; RDResUNet's 21 rdtail forwards and the
+    backward launches of their route each (bf16: all on the tensor cores,
+    4; f32: 2); SwinIR's 16 swinblock forwards and 2 backward launches
     each, or the SwinIR-L widths' 4 winattn forwards (served only); the
     loss's level 0, three pool levels and last level, forward (1 launch
     each) and backward (2 each); the metrics add a single-scale SSIM
@@ -1103,6 +1121,7 @@ def _per_step(train=True, metrics=False, kind="ResUNet"):
     elif kind == "RDResUNet":
         convs, tails = rd_shapes()
         n["convchain_fwd"], n["rdtail_fwd"] = sum(e + p for *_, e, p in convs), len(tails)
+        n["rdtail_tc_fwd"] = len(tails) if dtype == torch.bfloat16 else 0
         blocks = _rd_decoder_blocks()
     elif kind == "SwinIR":
         n["swinblock_fwd"], blocks = SWIN_BLOCKS, None
@@ -1110,8 +1129,12 @@ def _per_step(train=True, metrics=False, kind="ResUNet"):
         n["winattn"], blocks = sum(SWINL["depths"]), None
     n.update(ssim_fwd=1 + int(metrics), ssim_pool_fwd=3, ssim_l0_fwd=1)
     if train:
+        from pssr2_tpu_torch.ops.rdtail import BWD_LAUNCHES
+
+        per_tail = BWD_LAUNCHES["tc" if dtype == torch.bfloat16 else "cuda_core"]
         n.update(convchain_bwd=2 * n["convchain_fwd"], ssim_bwd=2, ssim_pool_bwd=6, ssim_l0_bwd=2,
-                 rdtail_bwd=2 * n["rdtail_fwd"], swinblock_bwd=2 * n["swinblock_fwd"],
+                 rdtail_bwd=per_tail * n["rdtail_fwd"], rdtail_tc_bwd=BWD_LAUNCHES["tc"] * n["rdtail_tc_fwd"],
+                 swinblock_bwd=2 * n["swinblock_fwd"],
                  chanstats=0 if blocks is None else 2 + blocks)
     return tuple(n[c] for c in COUNTERS)
 
@@ -1151,9 +1174,9 @@ def run_train(device, seed, card, root, kind):
     step, _ = build(loss_fn, False, gen_pair)
     hr_res = LR_RES * SCALE
     dataset = ImageDataset(root, hr_res=hr_res, lr_scale=SCALE, val_split=1, crappifier=Poisson())
-    per_step = _per_step(kind=kind)
     launches = {}
     for dtype in (torch.bfloat16, torch.float32):
+        per_step = _per_step(kind=kind, dtype=dtype)
         model = _model(state, dtype, device, kind)
         optimizer = AdamW(LR_RATE).init(model.parameters())
         loader = PatchLoader(dataset, RandomIterIdx(range(len(dataset)), rng=np.random.default_rng(seed)), BATCH)
@@ -1188,7 +1211,7 @@ def run_train(device, seed, card, root, kind):
         before = _counts()
         loss, (mse, ssim_val), _ = step(model, optimizer, hr_u8, None, generator, LR_RATE, n_valid, True)
         delta = tuple(a - b for a, b in zip(_counts(), before))
-        want = _per_step(metrics=True, kind=kind)
+        want = _per_step(metrics=True, kind=kind, dtype=dtype)
         values = [loss.item(), mse.item(), ssim_val.item()]
         if delta != want or not np.isfinite(values).all():
             raise RuntimeError(f"metrics step: launches {delta} (want {want}), loss, mse, ssim {values}")
@@ -1627,14 +1650,16 @@ def run_q8_serving(device, seed, card, root, tmp, kind):
     dataset = ImageDataset(root, hr_res=hr_res, lr_scale=SCALE, val_split=1, crappifier=Poisson())
     np.random.seed(seed)
     calib = calibrate_from_dataset(dataset, n_batches=TILES // BATCH, batch_size=BATCH)
-    per_fwd = dict.fromkeys(COUNTERS, 0)
-    per_fwd["q8conv"] = sum(_int8_convs(kind).values())
-    if kind == "RDResUNet":
-        per_fwd["rdtail_fwd"] = len(rd_shapes()[1])
-    want = tuple(-(-TILES // BATCH) * per_fwd[c] for c in COUNTERS)
     quantize = quantize_resunet if kind == "ResUNet" else quantize_rdresunet
     launches = {}
     for dtype in (torch.float32, torch.bfloat16):
+        # the int8 convs, and RDResUNet's float encoder in the glue dtype
+        per_fwd = dict.fromkeys(COUNTERS, 0)
+        per_fwd["q8conv"] = sum(_int8_convs(kind).values())
+        if kind == "RDResUNet":
+            per_fwd["rdtail_fwd"] = len(rd_shapes()[1])
+            per_fwd["rdtail_tc_fwd"] = per_fwd["rdtail_fwd"] if dtype == torch.bfloat16 else 0
+        want = tuple(-(-TILES // BATCH) * per_fwd[c] for c in COUNTERS)
         model = _model(state, dtype, device, kind, train=False)
         start = time.perf_counter()
         q = quantize(model, calib)

@@ -144,6 +144,8 @@ template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 
 // d[64 x N] += a[64 x 16] (registers, the mma.m16n8k16 A fragment per warp)
 // * b[16 x N] (shared memory, descriptor); TRANS_B = 1 for an MN-major B.
+// N = 64 and 128 serve the convolutions; 256 also the RDNet tail's second
+// product (csrc/rdtail_tc.cuh).
 template <int N, int TRANS_B> struct Wgmma;
 
 template <int TRANS_B> struct Wgmma<64, TRANS_B> {
@@ -176,6 +178,31 @@ template <int TRANS_B> struct Wgmma<128, TRANS_B> {
         "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
         "}\n"
         : CCTC_D16(0), CCTC_D16(16), CCTC_D16(32), CCTC_D16(48)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B> struct Wgmma<256, TRANS_B> {
+  __device__ __forceinline__ static void run(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
+        "}\n"
+        : CCTC_D16(0), CCTC_D16(16), CCTC_D16(32), CCTC_D16(48), CCTC_D16(64), CCTC_D16(80), CCTC_D16(96),
+          CCTC_D16(112)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
   }
 };

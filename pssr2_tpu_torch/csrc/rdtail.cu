@@ -11,24 +11,33 @@
 // kernels pssr2_tpu/ops/pallas/rdtail.py:_tail_kernel (forward, reached
 // through _pallas_tail) and _tail_bwd_kernel (backward, _pallas_tail_bwd).
 //
-// What bounds it on an H100 SXM: 2*M*I*(C + G) operations forward and three
-// times that backward, against 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s
-// (f32 CUDA cores); the bytes are x and the output once each (and, backward,
-// the cotangent, dx and the weight gradients) against 3.35 TB/s.  At the
-// RDResUNet's shapes (C 128-816, I = 4C, G 64-224) the operations bound it.
+// What bounds it on an H100 SXM: 2*M*I*(C + G) operations forward and
+// 2*M*I*(3C + 2G) backward, against 989 TFLOP/s (bf16 tensor cores) or 67
+// TFLOP/s (f32 CUDA cores); the bytes are x and the output once each (and,
+// backward, the cotangent, dx and the weight gradients) against 3.35 TB/s.
+// At the RDResUNet's shapes (C 128-816, I = 4C, G 64-224) the operations
+// bound it.
 //
-// Design, simple and right first: the products run on the CUDA cores in
-// f32 (bf16 values are exact in f32); no tensor cores, TMA or wgmma yet.
+// Two routes, chosen by the wrapper (ops/rdtail.py:route) from the
+// dtype and the shape, never on an error:
 //
-// Forward, one launch.  A block owns 32 rows.  It normalises them into
-// shared memory (f32 copies of the T values, channel-major), then walks I in
+// - bfloat16 with C, I and G multiples of 8, C <= 1024, G <= 256: the
+//   tensor cores (wgmma), csrc/rdtail_tc.cuh, entry points rdtail_tc_fwd
+//   (one launch) and rdtail_tc_bwd (four), tiled by ops/rdtail.py:tail_plan.
+// - float32, and any other bfloat16 shape: the kernels below, on the CUDA
+//   cores in f32 (bf16 values are exact in f32), entry points rdtail_fwd
+//   (one launch) and rdtail_bwd (two).  The tensor cores have no f32
+//   product, and TF32 would not hold the f32 tolerance.
+//
+// CUDA-core forward, one launch.  A block owns 32 rows.  It normalises them into shared
+// memory (f32 copies of the T values, channel-major), then walks I in
 // chunks of 128: z1 for the chunk (256 threads, 4x4 outputs each, W1 in
 // slices of 16 rows through shared memory, the next slice prefetched into
 // registers), GELU into shared memory, and the chunk's part of zg W2 added
 // to the f32 output accumulators (4 rows x up to 8 columns a thread, G <=
 // 256).  The I-wide intermediate never leaves the chip.
 //
-// Backward, two launches.  (1) Rows, 32 a block: the forward recomputed per
+// CUDA-core backward, two launches.  (1) Rows, 32 a block: the forward recomputed per
 // chunk as above, dz = T(g W2^T) for the chunk with the same thread layout,
 // dz1 = T(dz * GELU'(z1)) in registers; h, zg and dz1 are written to scratch
 // (M x C and M x I, in T) for launch 2; db1 and db2 are per-block column sums
@@ -40,6 +49,8 @@
 // change from run to run.
 
 #include "blockmath.cuh"
+#include "convchain_tc.cuh"
+#include "rdtail_tc.cuh"
 
 namespace {
 
@@ -511,4 +522,72 @@ extern "C" int rdtail_bwd(const void* x, const void* lns, const void* lnb, const
                              db1, dw2, db2, m, c, inter, g, splits, eps, s);
   return launch_bwd<__nv_bfloat16>(x, lns, lnb, w1, w1t, b1, w2t, gout, h, zg, dz1, dx, dlns, dlnb,
                                    dw1, db1, dw2, db2, m, c, inter, g, splits, eps, s);
+}
+
+// ---------------------------------------------- the tensor-core route
+
+// bfloat16 on the tensor cores (csrc/rdtail_tc.cuh), one launch: `wg`
+// warpgroups of 64 rows a block, I chunks of `ni` columns, I split over
+// `splits` blocks of one cluster (ops/rdtail.py:tail_plan).  The weights
+// are W1 (C, I) and W2 (I, G) row-major.  Returns the cudaGetLastError()
+// code after the launch (0 on success).
+extern "C" int rdtail_tc_fwd(const void* x, const void* lns, const void* lnb, const void* w1, const void* b1,
+                             const void* w2, const void* b2, void* out, int m, int c, int inter, int g, int wg,
+                             int ni, int splits, float eps, void* stream) {
+  if (m <= 0 || c <= 0 || inter <= 0 || g <= 0 || c % 8 || inter % 8 || g % 8 || g > 256 || c > rdtc::MAX_C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using rdtc::bf16;
+  rdtc::FwdArgs p{static_cast<const bf16*>(x), static_cast<const bf16*>(lns), static_cast<const bf16*>(lnb),
+                  static_cast<const bf16*>(w1), static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+                  static_cast<const bf16*>(b2), static_cast<bf16*>(out), m, c, inter, g, round_up(c, rdtc::CH), eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int gp = g <= 64 ? 64 : g <= 128 ? 128 : 256;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (wg == 1 && ni == 128 && gp == 64) err = rdtc::launch_fwd<1, 128, 64>(p, splits, s);
+  if (wg == 2 && ni == 128 && gp == 64) err = rdtc::launch_fwd<2, 128, 64>(p, splits, s);
+  if (wg == 1 && ni == 128 && gp == 128) err = rdtc::launch_fwd<1, 128, 128>(p, splits, s);
+  if (wg == 2 && ni == 128 && gp == 128) err = rdtc::launch_fwd<2, 128, 128>(p, splits, s);
+  if (wg == 1 && ni == 64 && gp == 256) err = rdtc::launch_fwd<1, 64, 256>(p, splits, s);
+  if (wg == 2 && ni == 64 && gp == 256) err = rdtc::launch_fwd<2, 64, 256>(p, splits, s);
+  return static_cast<int>(err);
+}
+
+// bfloat16 on the tensor cores, four launches: the rows (`rows_wg`
+// warpgroups, I chunks of `rows_ni`, I split `rows_splits` ways), dh
+// (`dh_bn` channels a block), dW1 and dW2 (rows split in shares of
+// `dw_rows`), the LayerNorm backward.  h, dh (M, C), zg and dz1 (M, I) are
+// bf16 scratch; dlns, dlnb, dw1 (C, I), db1, dw2 (I, G) and db2 are f32
+// and must be zeroed before the call.  Returns the first nonzero
+// cudaGetLastError() code (0 on success).
+extern "C" int rdtail_tc_bwd(const void* x, const void* lns, const void* lnb, const void* w1, const void* b1,
+                             const void* w2, const void* gout, void* h, void* zg, void* dz1, void* dh, void* dx,
+                             void* dlns, void* dlnb, void* dw1, void* db1, void* dw2, void* db2, int m, int c,
+                             int inter, int g, int rows_wg, int rows_ni, int rows_splits, int dh_bn, int dw_rows,
+                             float eps, void* stream) {
+  if (m <= 0 || c <= 0 || inter <= 0 || g <= 0 || c % 8 || inter % 8 || g % 8 || g > 256 || c > rdtc::MAX_C ||
+      dw_rows <= 0 || dw_rows % rdtc::CH)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using rdtc::bf16;
+  rdtc::BwdArgs p{static_cast<const bf16*>(x), static_cast<const bf16*>(lns), static_cast<const bf16*>(lnb),
+                  static_cast<const bf16*>(w1), static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+                  static_cast<const bf16*>(gout), static_cast<bf16*>(h), static_cast<bf16*>(zg),
+                  static_cast<bf16*>(dz1), static_cast<bf16*>(dh), static_cast<bf16*>(dx),
+                  static_cast<float*>(dlns), static_cast<float*>(dlnb), static_cast<float*>(db1),
+                  static_cast<float*>(db2), m, c, inter, g, round_up(c, rdtc::CH), round_up(g, rdtc::CH), eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (rows_wg == 1 && rows_ni == 64) err = rdtc::launch_rows<1, 64>(p, rows_splits, s);
+  if (rows_wg == 2 && rows_ni == 64) err = rdtc::launch_rows<2, 64>(p, rows_splits, s);
+  if (rows_wg == 1 && rows_ni == 128) err = rdtc::launch_rows<1, 128>(p, rows_splits, s);
+  if (rows_wg == 2 && rows_ni == 128) err = rdtc::launch_rows<2, 128>(p, rows_splits, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const rdtc::DhArgs q{p.dz1, p.w1, p.dh, m, c, inter};
+  err = dh_bn == 128 ? rdtc::launch_dh<128>(q, s) : dh_bn == 64 ? rdtc::launch_dh<64>(q, s) : cudaErrorInvalidValue;
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const rdtc::DwArgs r{rdtc::dw_job(p.h, p.dz1, static_cast<float*>(dw1), c, inter),
+                       rdtc::dw_job(p.zg, p.g, static_cast<float*>(dw2), inter, g), m, dw_rows};
+  if ((err = rdtc::launch_dw(r, s)) != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(rdtc::launch_ln_bwd(p, s));
 }

@@ -373,9 +373,15 @@ def test_ssim_largest_window_matches_plain(device):
 
 # (M, C, inter, G) of the RDNet block tail: tests/test_rdtail.py's shape,
 # ragged sizes in every dimension, stage 0's first block, stage 6's last
-# (the widest C and G), and the largest C and G the kernels take
+# (the widest C and G), and the largest C and G the kernels take (past the
+# tensor-core route's TC_MAX_C); then C 264 (no multiple of 16) with G 104
+# (no multiple of 64), a ragged M whose I is split over 5 blocks, stage 2's
+# first block (I split 3 ways) and stage 6's first at batch 16 (I split 8
+# ways over a cluster).  In bf16 every shape of multiples of 8 up to
+# TC_MAX_C takes the tensor cores, the others the CUDA cores.
 RD_SHAPES = [(256, 48, 192, 24), (100, 37, 75, 13), (2048, 128, 512, 64), (1024, 816, 3264, 224),
-             (64, rdtail.MAX_C, 160, rdtail.MAX_G)]
+             (64, rdtail.MAX_C, 160, rdtail.MAX_G), (512, 264, 1056, 104), (300, 160, 640, 104),
+             (4096, 232, 928, 128), (1024, 368, 1472, 224)]
 
 
 def _rd_inputs(device, dtype, m, c, inter, g, seed=0):
@@ -390,14 +396,22 @@ def _rd_inputs(device, dtype, m, c, inter, g, seed=0):
 @pytest.mark.parametrize("shape", RD_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_rdtail_fwd_bwd_match_plain(device, shape, dtype):
     """The forward kernel against reference_tail within rdtail.TOLERANCE, and
-    the two backward launches against reference_tail_bwd within
-    rdtail.BWD_TOLERANCE and the row-count bound of the sums."""
+    the backward launches against reference_tail_bwd within
+    rdtail.BWD_TOLERANCE and the row-count bound of the sums; the route
+    that ran is the one the shape and dtype pick, with its launch counts."""
     x, params, gout = _rd_inputs(device, dtype, *shape)
+    m, c, inter, g = shape
+    route = rdtail.route(c, inter, g, dtype)
+    multiples = all(v % 8 == 0 for v in (c, inter, g))
+    assert route == ("tc" if dtype == torch.bfloat16 and multiples and c <= rdtail.TC_MAX_C else "cuda_core")
+    n_bwd = rdtail.BWD_LAUNCHES[route]
     with torch.no_grad():
-        before = (rdtail.launches, rdtail.bwd_launches)
+        before = (rdtail.launches, rdtail.bwd_launches, rdtail.tc_launches, rdtail.tc_bwd_launches)
         out = rdtail._launch_fwd(x, params, 1e-6)
         grads = rdtail._launch_bwd(x, params, gout, 1e-6)
-        assert (rdtail.launches, rdtail.bwd_launches) == (before[0] + 1, before[1] + 2)
+        tc = route == "tc"
+        assert (rdtail.launches, rdtail.bwd_launches, rdtail.tc_launches, rdtail.tc_bwd_launches) == (
+            before[0] + 1, before[1] + n_bwd, before[2] + int(tc), before[3] + (n_bwd if tc else 0))
         ref = rdtail.reference_tail(x, *params, eps=1e-6)
         ref_grads = rdtail.reference_tail_bwd(x, *params, gout, eps=1e-6)
     torch.cuda.synchronize()
@@ -409,15 +423,17 @@ def test_rdtail_fwd_bwd_match_plain(device, shape, dtype):
 
 
 def test_rdtail_autograd_goes_through_kernels(device):
-    """Under autograd a CUDA tensor launches the forward and both backward
-    kernels, and the parameters' gradients come back in f32."""
+    """Under autograd a bf16 CUDA tensor launches the tensor-core forward and
+    its four backward kernels, and the parameters' gradients come back in
+    f32."""
     x, params, gout = _rd_inputs(device, torch.bfloat16, 300, 40, 160, 24)
+    assert rdtail.route(40, 160, 24, torch.bfloat16) == "tc"
     x = x.clone().requires_grad_()
     params = [p.clone().requires_grad_() for p in params]
-    f0, b0 = rdtail.launches, rdtail.bwd_launches
+    f0, b0, t0 = rdtail.launches, rdtail.bwd_launches, rdtail.tc_bwd_launches
     out = rdtail.fused_rd_tail(x, *params, eps=1e-6)
     out.backward(gout)
-    assert (rdtail.launches, rdtail.bwd_launches) == (f0 + 1, b0 + 2)
+    assert (rdtail.launches, rdtail.bwd_launches, rdtail.tc_bwd_launches) == (f0 + 1, b0 + 4, t0 + 4)
     with torch.no_grad():
         ref = rdtail.reference_tail_bwd(x, *params, gout, eps=1e-6)
     got = (x.grad, *(p.grad for p in params))
