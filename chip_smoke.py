@@ -8,10 +8,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
 1. device: a CUDA card is required; its name and power limit are printed;
 2. build: the CUDA kernel sources are compiled with nvcc, all at once
    (seconds, registers and spills printed); then the SASS of the libraries
-   with tensor-core kernels, convchain and rdtail (``cuobjdump``): each
-   kernel's HGMMA (wgmma) and HMMA (mma.sync) count beside its registers,
-   shared memory and local bytes, failing if cuobjdump is missing or a
-   tensor-core kernel (a name with ``_tc_``) has no HGMMA;
+   with tensor-core kernels, convchain, rdtail and swinblock
+   (``cuobjdump``): each kernel's HGMMA (wgmma) and HMMA (mma.sync) count
+   beside its registers, shared memory and local bytes, failing if
+   cuobjdump is missing, a tensor-core kernel (a name with ``_tc_``) has no
+   HGMMA or a tensor-core Swin-block kernel uses local memory;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with times (CUDA events), its bound
    and a library yardstick: the convchain forward and backward at every
@@ -26,8 +27,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    at batch 16, in f32 and bf16 (every bf16 one on the tensor-core route,
    each shape's route and TFLOP/s printed); the whole Swin block forward
    (eval and with DropPath keep-scales) and backward at the default SwinIR's blocks
-   at batch 16 ((16, 128, 128, 96), unshifted and shifted), in f32 and
-   bf16; the window attention at those windows (4,096 x 64 x 288) and at
+   at batch 16 ((16, 128, 128, 96), unshifted and shifted), in f32 (CUDA
+   cores) and bf16 (tensor cores; route, plan and TFLOP/s printed, and the
+   tensor-core launches counted); the window attention at those windows (4,096 x 64 x 288) and at
    the SwinIR-L widths (C 240, 8 heads), masked and unmasked; the soft
    histogram forward and backward at the learned crappifier's (16, 16384)
    x 512 and at a ragged value count; the BatchNorm dual sums at one
@@ -60,7 +62,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    f32 step on 2 samples held against the same step on the CPU; then the
    same steps with the full-width ``RDResUNet()`` (one bf16 step traced)
    and ``SwinIR()`` (DropPath live, 16 whole-block forwards and 32 backward
-   launches a step, and one more step per dtype traced);
+   launches a step, bf16's counted apart on the tensor cores, and one more
+   step per dtype traced);
 6. train_paired: the full-width ResUNet in bf16 compute, batch 16, over
    the 32 tiles with validation, a ReduceLROnPlateau, weight checkpoints
    and a state directory, for 2 epochs, then resumed by a second call to
@@ -232,12 +235,12 @@ def cuda_ms(fn, reps=10):
 
 # The libraries whose bf16 kernels run on the tensor cores; a kernel of
 # theirs is a tensor-core one exactly when its name holds "_tc_"
-TC_LIBS = ("convchain", "convchain_bwd", "rdtail")
+TC_LIBS = ("convchain", "convchain_bwd", "rdtail", "swinblock")
 
 
 def _kernel_label(mangled):
     """convchain_tc_fwd_kernel<2,128,1> from the mangled name."""
-    m = re.search(r"\d((?:convchain|rdtail)\w*?_kernel)(?:I(\w*?)E)?E", mangled)
+    m = re.search(r"\d((?:convchain|rdtail|swin)\w*?_kernel)(?:I(\w*?)E)?E", mangled)
     if not m:
         return mangled[:60]
     targs = m.group(2) or ""
@@ -251,12 +254,13 @@ def check_sass(builds):
     HMMA (mma.sync) instructions in the SASS, its registers, shared memory
     (static) and local (spill) bytes (``cuobjdump -sass`` and
     ``-res-usage``).  Fails if cuobjdump is missing, a library has no
-    tensor-core kernel, or a tensor-core kernel has no HGMMA."""
+    tensor-core kernel, a tensor-core kernel has no HGMMA, or a tensor-core
+    Swin-block kernel uses local memory."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         raise RuntimeError("cuobjdump not found: the SASS of the tensor-core kernels cannot be checked")
-    print("phase sass: convchain and rdtail kernels, tensor-core instructions (cuobjdump -sass) | REG, static SHARED, "
-          "LOCAL (cuobjdump -res-usage)")
+    print("phase sass: convchain, rdtail and swinblock kernels, tensor-core instructions (cuobjdump -sass) | REG, "
+          "static SHARED, LOCAL (cuobjdump -res-usage)")
     for lib in TC_LIBS:
         path = str(builds[lib][0])
         sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300, check=True).stdout
@@ -279,15 +283,18 @@ def check_sass(builds):
         for name, (hgmma, hmma) in sorted(counts.items(), key=lambda kv: _kernel_label(kv[0])):
             reg, shared, local = usage.get(name, ("?", "?", "?"))
             bad = "_tc_" in name and hgmma == 0
+            spills = "_tc_" in name and "swin" in name and local != "0"
             print(f"  {lib}.cu {_kernel_label(name):36s} HGMMA {hgmma:4d} HMMA {hmma:4d} | REG {reg} SHARED "
-                  f"{shared} LOCAL {local}" + ("  <-- NO HGMMA" if bad else ""))
+                  f"{shared} LOCAL {local}" + ("  <-- NO HGMMA" if bad else "") + ("  <-- LOCAL MEMORY" if spills else ""))
             if bad:
                 raise RuntimeError(f"{name}: a tensor-core kernel without HGMMA")
+            if spills:
+                raise RuntimeError(f"{name}: a tensor-core Swin-block kernel with local memory ({local} bytes)")
 
 
 # Kernel-name fragments of the device-time groups that profile_device sums
-KERNEL_GROUPS = (("swinblock fwd", ("swin_fwd",)), ("swinblock bwd launch 1", ("swin_bwd_rows",)),
-                 ("swinblock bwd launch 2", ("swin_reduce",)), ("winattn", ("swin_winattn",)),
+KERNEL_GROUPS = (("swinblock fwd", ("swin_tc_fwd", "swin_fwd")), ("swinblock bwd rows", ("swin_tc_rows", "swin_bwd_rows")),
+                 ("swinblock bwd dW and bias map", ("swin_tc_dw", "swin_reduce")), ("winattn", ("swin_winattn",)),
                  ("ssimfused", ("ssim_",)), ("convchain fwd", ("convchain_tc_fwd", "convchain_fwd")),
                  ("convchain bwd dx", ("convchain_tc_dx", "convchain_bwd_dx")),
                  ("convchain bwd dW", ("convchain_tc_dw", "convchain_bwd_dw")),
@@ -684,8 +691,10 @@ def check_swin(device, gen):
     """Phase 3e: the whole Swin block (row 10) forward, without and with
     DropPath keep-scales, and its two backward launches against
     reference_block and reference_block_bwd at the default SwinIR's blocks
-    at batch 16, unshifted and shifted, in f32 and bf16, with times, bounds
-    and the library chain (and its autograd backward); then the window
+    at batch 16, unshifted and shifted, in f32 and bf16 (each dtype's route
+    printed and its tensor-core launches counted: bf16 runs on the tensor
+    cores, f32 on the CUDA cores), with times, TFLOP/s, bounds and the
+    library chain (and its autograd backward); then the window
     attention (row 11) at those windows and at the SwinIR-L widths, masked
     and unmasked, against its plain version and SDPA.  Returns per-dtype
     totals: the block over one SwinIR() forward or backward (8 unshifted
@@ -696,11 +705,24 @@ def check_swin(device, gen):
     c, heads, ws, hidden = SWIN_C, SWIN_HEADS, SWIN_WS, SWIN_HIDDEN
     n, scale = ws * ws, (c // heads) ** -0.5
     shape = (BATCH, LR_RES, LR_RES, c)
-    print(f"phase kernels: swinblock forward (1 launch) and backward (2 launches) vs plain at {shape}, "
-          f"{heads} heads, window {ws}, MLP {hidden}: max abs error (relative) <= bound | ms of kernel, plain, "
-          "library; bound")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"phase kernels: swinblock forward (1 launch) and backward (tensor cores "
+          f"{swinblock.BWD_LAUNCHES['tc']} launches, CUDA cores {swinblock.BWD_LAUNCHES['cuda_core']}) vs plain at "
+          f"{shape}, {heads} heads, window {ws}, MLP {hidden}, on {smi}: max abs error (relative) <= bound | ms of "
+          "kernel, plain, library; bound; kernel TFLOP/s")
     totals = {}
     for dtype in (torch.float32, torch.bfloat16):
+        route = swinblock.route(c, hidden, heads, ws, dtype)
+        if route != ("tc" if dtype == torch.bfloat16 else "cuda_core"):
+            raise RuntimeError(f"swinblock {dtype} at the default SwinIR's blocks takes the {route} route")
+        tc = route == "tc"
+        if tc:
+            plans = {k: swinblock.tc_plan(BATCH * (LR_RES // ws) ** 2, c, hidden, k == "bwd") for k in ("fwd", "bwd")}
+            print(f"  {str(dtype)[6:]}: route {route}; (windows a block, weight stages, grid, shared bytes) forward "
+                  f"{plans['fwd']}, backward rows {plans['bwd']}")
+        else:
+            print(f"  {str(dtype)[6:]}: route {route}")
         tot = {"fwd": _new_totals(), "bwd": _new_totals(), "winattn": _new_totals()}
         x = torch.randn(*shape, device=device, generator=gen).to(dtype)
         gout = torch.randn(*shape, device=device, generator=gen).to(dtype)
@@ -721,8 +743,12 @@ def check_swin(device, gen):
                 args = (x, params, heads, ws, shift, SWIN_EPS, sc)
                 kw = dict(heads=heads, ws=ws, shift=shift, eps=SWIN_EPS, scales=sc)
                 with torch.no_grad():
+                    counts = (swinblock.tc_launches, swinblock.tc_bwd_launches)
                     if kind == "bwd":
                         got = swinblock._launch_bwd(x, params, gout, heads, ws, shift, SWIN_EPS, sc)
+                        moved = (swinblock.tc_launches - counts[0], swinblock.tc_bwd_launches - counts[1])
+                        if moved != (0, swinblock.BWD_LAUNCHES["tc"] if tc else 0):
+                            raise RuntimeError(f"swinblock bwd on the {route} route: tensor-core launches {moved}")
                         ref = swinblock.reference_block_bwd(x, params, gout, **kw)
                         torch.cuda.synchronize()
                         errs = swinblock.bwd_errors(got, ref)
@@ -731,6 +757,9 @@ def check_swin(device, gen):
                         p_ms = cuda_ms(lambda: swinblock.reference_block_bwd(x, params, gout, **kw), reps=3)
                     else:
                         got = swinblock._launch_fwd(*args)
+                        moved = (swinblock.tc_launches - counts[0], swinblock.tc_bwd_launches - counts[1])
+                        if moved != (int(tc), 0):
+                            raise RuntimeError(f"swinblock fwd on the {route} route: tensor-core launches {moved}")
                         ref = swinblock.reference_block(x, params, **kw)
                         torch.cuda.synchronize()
                         errs = {"out": swinblock.errors(got, ref)}
@@ -750,7 +779,7 @@ def check_swin(device, gen):
                 ok = all(e <= lim for e, _, lim in errs.values())
                 b_ms, b_by, ops = swin_bound_ms(*shape, heads, ws, hidden, dtype, kind == "bwd")
                 print(
-                    f"  {str(dtype)[6:]:8s} {kind:10s} shift {shift}: "
+                    f"  {str(dtype)[6:]:8s} {route:9s} {kind:10s} shift {shift}: "
                     + " ".join(f"{k} {e:.3g} (rel {r:.2g}) <= {b:.3g}" for k, (e, r, b) in errs.items())
                     + f" | {k_ms:.4f} {p_ms:.4f} {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                     f"{ops / k_ms / 1e9:.2f} TFLOP/s" + ("" if ok else "  <-- DISAGREES")
@@ -800,9 +829,9 @@ def check_swin(device, gen):
         for kind, t in tot.items():
             what = "the SwinIR-L-width forward's 4 blocks" if kind == "winattn" else \
                 f"one SwinIR() {'forward' if kind == 'fwd' else 'backward'}'s {t['layers']} blocks"
-            print(f"  {dtype}: {'swinblock ' + kind if kind != 'winattn' else kind} over {what}: kernel "
-                  f"{t['ms']:.3f} ms ({t['ops'] / t['ms'] / 1e9:.2f} TFLOP/s), plain {t['plain_ms']:.3f} ms, library "
-                  f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms")
+            label = f"swinblock {kind} ({route})" if kind != "winattn" else kind
+            print(f"  {dtype}: {label} over {what}: kernel {t['ms']:.3f} ms ({t['ops'] / t['ms'] / 1e9:.2f} TFLOP/s), plain {t['plain_ms']:.3f} ms, library "
+                  f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms; {smi}")
     return totals
 
 def _ssim_case(device, gen, kind, h, win=11, divisor=1.0):
@@ -1009,7 +1038,8 @@ def run_slice(device, seed, card, root, tmp, kind, calls=("first", "second")):
 
     for dtype in (torch.float32, torch.bfloat16):
         # per forward: the model's convchain, rdtail, swinblock or winattn forwards, nothing else
-        per_fwd = tuple(n if c in ("convchain_fwd", "rdtail_fwd", "rdtail_tc_fwd", "swinblock_fwd", "winattn") else 0
+        per_fwd = tuple(n if c in ("convchain_fwd", "rdtail_fwd", "rdtail_tc_fwd", "swinblock_fwd", "swinblock_tc_fwd",
+                                   "winattn") else 0
                         for c, n in zip(COUNTERS, _per_step(train=False, kind=kind, dtype=dtype)))
         want = tuple(batches * n for n in per_fwd)
         model = _model(state, dtype, device, kind, train=False)
@@ -1072,7 +1102,8 @@ def run_slice(device, seed, card, root, tmp, kind, calls=("first", "second")):
 # the launch counters, in the order of _counts()
 COUNTERS = ("convchain_fwd", "convchain_bwd", "ssim_fwd", "ssim_bwd", "ssim_pool_fwd", "ssim_pool_bwd",
             "ssim_l0_fwd", "ssim_l0_bwd", "rdtail_fwd", "rdtail_bwd", "rdtail_tc_fwd", "rdtail_tc_bwd",
-            "swinblock_fwd", "swinblock_bwd", "winattn", "chanstats", "gradhist_fwd", "gradhist_bwd", "q8conv")
+            "swinblock_fwd", "swinblock_bwd", "swinblock_tc_fwd", "swinblock_tc_bwd", "winattn", "chanstats",
+            "gradhist_fwd", "gradhist_bwd", "q8conv")
 # f32 tiles of the serving phase held against the CPU, per model
 CPU_TILES = {"ResUNet": 2, "RDResUNet": 1, "SwinIR": 1, "SwinIR-L": 1}
 
@@ -1083,8 +1114,8 @@ def _counts():
     return (convchain.launches, convchain.bwd_launches, ssimfused.fwd_launches, ssimfused.bwd_launches,
             ssimfused.pool_fwd_launches, ssimfused.pool_bwd_launches, ssimfused.l0_fwd_launches,
             ssimfused.l0_bwd_launches, rdtail.launches, rdtail.bwd_launches, rdtail.tc_launches,
-            rdtail.tc_bwd_launches, swinblock.launches,
-            swinblock.bwd_launches, winattn.launches, chanstats.launches, gradhist.launches, gradhist.bwd_launches,
+            rdtail.tc_bwd_launches, swinblock.launches, swinblock.bwd_launches, swinblock.tc_launches,
+            swinblock.tc_bwd_launches, winattn.launches, chanstats.launches, gradhist.launches, gradhist.bwd_launches,
             q8chain.launches)
 
 
@@ -1096,7 +1127,8 @@ def _reset_counts():
     ssimfused.pool_fwd_launches = ssimfused.pool_bwd_launches = 0
     ssimfused.l0_fwd_launches = ssimfused.l0_bwd_launches = 0
     rdtail.launches = rdtail.bwd_launches = rdtail.tc_launches = rdtail.tc_bwd_launches = 0
-    swinblock.launches = swinblock.bwd_launches = winattn.launches = 0
+    swinblock.launches = swinblock.bwd_launches = swinblock.tc_launches = swinblock.tc_bwd_launches = 0
+    winattn.launches = 0
     chanstats.launches = gradhist.launches = gradhist.bwd_launches = q8chain.launches = 0
 
 
@@ -1125,18 +1157,28 @@ def _per_step(train=True, metrics=False, kind="ResUNet", dtype=torch.bfloat16):
         blocks = _rd_decoder_blocks()
     elif kind == "SwinIR":
         n["swinblock_fwd"], blocks = SWIN_BLOCKS, None
+        n["swinblock_tc_fwd"] = SWIN_BLOCKS if _swin_route(dtype) == "tc" else 0
     else:
         n["winattn"], blocks = sum(SWINL["depths"]), None
     n.update(ssim_fwd=1 + int(metrics), ssim_pool_fwd=3, ssim_l0_fwd=1)
     if train:
+        from pssr2_tpu_torch.ops import swinblock
         from pssr2_tpu_torch.ops.rdtail import BWD_LAUNCHES
 
         per_tail = BWD_LAUNCHES["tc" if dtype == torch.bfloat16 else "cuda_core"]
         n.update(convchain_bwd=2 * n["convchain_fwd"], ssim_bwd=2, ssim_pool_bwd=6, ssim_l0_bwd=2,
                  rdtail_bwd=per_tail * n["rdtail_fwd"], rdtail_tc_bwd=BWD_LAUNCHES["tc"] * n["rdtail_tc_fwd"],
-                 swinblock_bwd=2 * n["swinblock_fwd"],
+                 swinblock_bwd=swinblock.BWD_LAUNCHES[_swin_route(dtype)] * n["swinblock_fwd"],
+                 swinblock_tc_bwd=swinblock.BWD_LAUNCHES["tc"] * n["swinblock_tc_fwd"],
                  chanstats=0 if blocks is None else 2 + blocks)
     return tuple(n[c] for c in COUNTERS)
+
+
+def _swin_route(dtype):
+    """The route of the default SwinIR's blocks in ``dtype``."""
+    from pssr2_tpu_torch.ops import swinblock
+
+    return swinblock.route(SWIN_C, SWIN_HIDDEN, SWIN_HEADS, SWIN_WS, dtype)
 
 
 @functools.cache

@@ -145,7 +145,8 @@ template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 // d[64 x N] += a[64 x 16] (registers, the mma.m16n8k16 A fragment per warp)
 // * b[16 x N] (shared memory, descriptor); TRANS_B = 1 for an MN-major B.
 // N = 64 and 128 serve the convolutions; 256 also the RDNet tail's second
-// product (csrc/rdtail_tc.cuh).
+// product (csrc/rdtail_tc.cuh); 16, 32 and 192 the Swin block's heads and
+// widths (csrc/swinblock_tc.cuh).
 template <int N, int TRANS_B> struct Wgmma;
 
 template <int TRANS_B> struct Wgmma<64, TRANS_B> {
@@ -203,6 +204,62 @@ template <int TRANS_B> struct Wgmma<256, TRANS_B> {
         "}\n"
         : CCTC_D16(0), CCTC_D16(16), CCTC_D16(32), CCTC_D16(48), CCTC_D16(64), CCTC_D16(80), CCTC_D16(96),
           CCTC_D16(112)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B> struct Wgmma<16, TRANS_B> {
+  __device__ __forceinline__ static void run(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+        "}\n"
+        : CCTC_D4(0), CCTC_D4(4)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B> struct Wgmma<32, TRANS_B> {
+  __device__ __forceinline__ static void run(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+        "}\n"
+        : CCTC_D16(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B> struct Wgmma<192, TRANS_B> {
+  __device__ __forceinline__ static void run(float (&d)[96], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n"
+        "}\n"
+        : CCTC_D16(0), CCTC_D16(16), CCTC_D16(32), CCTC_D16(48), CCTC_D16(64), CCTC_D16(80)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TRANS_B));
   }
 };

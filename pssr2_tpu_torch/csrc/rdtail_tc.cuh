@@ -686,15 +686,15 @@ struct DwCfg {
   static constexpr int BYTES = DW_STAGES * STAGE + 1024;
 };
 
-__global__ void __launch_bounds__(128) rdtail_tc_dw_kernel(const DwArgs p) {
+// The mainloop and epilogue of one weight-gradient tile, shared by the
+// RDNet tail's dW launch and the Swin block's (csrc/swinblock_tc.cuh): the
+// 64 x 128 tile `tile` of job q over rows [k_begin, k_end), added to q.out
+// with f32 atomicAdd.  A block of 128 threads and DwCfg::BYTES of dynamic
+// shared memory.
+__device__ __forceinline__ void dw_tile_tc(const DwJob& q, int tile, int k_begin, int k_end) {
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
-  const bool first = static_cast<int>(blockIdx.x) < p.j1.tiles;
-  const DwJob q{first ? p.j1.a : p.j2.a, first ? p.j1.b : p.j2.b, first ? p.j1.out : p.j2.out,
-                first ? p.j1.mo : p.j2.mo, first ? p.j1.no : p.j2.no, first ? p.j1.tiles_n : p.j2.tiles_n, 0};
-  const int tile = first ? blockIdx.x : blockIdx.x - p.j1.tiles;
   const int m0 = (tile / q.tiles_n) * 64, n0 = (tile % q.tiles_n) * DW_BN;
-  const int k_begin = blockIdx.y * p.rows_per_split, k_end = min(p.M, k_begin + p.rows_per_split);
   const int nsteps = k_begin < k_end ? (k_end - k_begin + CH - 1) / CH : 0;
   const int tid = threadIdx.x, lane = tid & 31, w4 = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -749,6 +749,14 @@ __global__ void __launch_bounds__(128) rdtail_tc_dw_kernel(const DwArgs p) {
                   make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
     }
   }
+}
+
+__global__ void __launch_bounds__(128) rdtail_tc_dw_kernel(const DwArgs p) {
+  const bool first = static_cast<int>(blockIdx.x) < p.j1.tiles;
+  const DwJob q{first ? p.j1.a : p.j2.a, first ? p.j1.b : p.j2.b, first ? p.j1.out : p.j2.out,
+                first ? p.j1.mo : p.j2.mo, first ? p.j1.no : p.j2.no, first ? p.j1.tiles_n : p.j2.tiles_n, 0};
+  const int k_begin = blockIdx.y * p.rows_per_split;
+  dw_tile_tc(q, first ? blockIdx.x : blockIdx.x - p.j1.tiles, k_begin, min(p.M, k_begin + p.rows_per_split));
 }
 
 // The LayerNorm backward of LN_ROWS rows a block, a warp a row: dx, and

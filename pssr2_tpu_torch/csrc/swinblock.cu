@@ -32,8 +32,15 @@
 // (bf16 tensor cores) or 67 TFLOP/s (f32 CUDA cores); the bytes are x and the
 // output once each.  The operations bound it.
 //
-// Design, simple and right first: the products run on the CUDA cores in f32
-// (bf16 values are exact in f32); no tensor cores, TMA or wgmma yet.
+// Two routes (ops/swinblock.py:route).  bfloat16 blocks with 8 x 8
+// windows, C a multiple of 16 up to 192, heads of 16 or 32 channels and an
+// MLP width a multiple of 16 up to 384 run on the tensor cores (wgmma):
+// csrc/swinblock_tc.cuh, entry points swin_tc_fwd (one launch) and
+// swin_tc_bwd (two), whose header gives that design.  float32 and every
+// other bfloat16 shape run on the CUDA cores in f32 (bf16 values are exact
+// in f32), as set out below; the window attention runs there too.
+//
+// CUDA-core route.
 //
 // Forward, one launch: one thread block of 256 threads per window, every
 // value between x and the output in shared memory as f32 copies of the T
@@ -66,6 +73,9 @@
 // of the head (d <= 32 channels) and its probabilities in shared memory.
 
 #include "blockmath.cuh"
+#include "convchain_tc.cuh"
+#include "rdtail_tc.cuh"
+#include "swinblock_tc.cuh"
 
 namespace {
 
@@ -1004,4 +1014,121 @@ extern "C" int swin_winattn(const void* qkv, const void* bias, const void* mask,
         static_cast<const __nv_bfloat16*>(qkv), bf, mf, static_cast<__nv_bfloat16*>(out), h, w, c, heads, wh, ww,
         nmask, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------- the tensor-core route
+
+namespace {
+
+bool valid_tc(int b, int h, int w, int c, int heads, int shift, int hidden, int wg, int nring, int grid, int bwd) {
+  const int d = heads > 0 ? c / heads : 0;
+  const int nwin = b * (h / 8) * (w / 8);
+  return b > 0 && h > 0 && w > 0 && h % 8 == 0 && w % 8 == 0 && static_cast<long long>(b) * h * w < (1ll << 31) &&
+         c > 0 && c % 16 == 0 && c <= 192 && heads > 0 &&
+         c % heads == 0 && (d == 16 || d == 32) && hidden > 0 && hidden % 16 == 0 && hidden <= 384 && shift >= 0 &&
+         shift < 8 && (wg == 1 || wg == 2) && (nring == 2 || nring == 3) && grid > 0 &&
+         grid <= (nwin + wg - 1) / wg && swtc::smem_bytes(c, hidden, wg, nring, bwd) <= swtc::SMEM_LIMIT &&
+         swtc::slab_count(c, hidden, bwd) <= swtc::MAX_SLABS;
+}
+
+swtc::Args tc_args(void* const* p, int b, int h, int w, int c, int heads, int shift, int hidden, int wg, int nring,
+                   float eps) {
+  swtc::Args a = {};
+  a.x = static_cast<const swtc::bf16*>(p[0]);
+  a.B = b;
+  a.H = h;
+  a.W = w;
+  a.C = c;
+  a.heads = heads;
+  a.shift = shift;
+  a.hidden = hidden;
+  a.nwin = b * (h / 8) * (w / 8);
+  a.wg = wg;
+  a.ngroups = (a.nwin + wg - 1) / wg;
+  a.nring = nring;
+  a.eps = eps;
+  return a;
+}
+
+template <bool BWD>
+cudaError_t launch_tc(const swtc::Args& a, int grid, cudaStream_t s) {
+  const int bytes = swtc::smem_bytes(a.C, a.hidden, a.wg, a.nring, BWD);
+  const int cs = (a.C + 63) / 64, d = a.C / a.heads;
+#define SWTC_CASE(CS, D)                                                                              \
+  if (cs == CS && d == D)                                                                             \
+    return BWD ? swtc::launch_rows<CS, D>(a, grid, bytes, s) : swtc::launch_fwd<CS, D>(a, grid, bytes, s);
+  SWTC_CASE(1, 16)
+  SWTC_CASE(1, 32)
+  SWTC_CASE(2, 16)
+  SWTC_CASE(2, 32)
+  SWTC_CASE(3, 16)
+  SWTC_CASE(3, 32)
+#undef SWTC_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// bfloat16 on the tensor cores (csrc/swinblock_tc.cuh), one launch.  ptrs
+// as for swin_block_fwd (x, out, the 12 parameters in bf16, the f32 bias
+// map, s1, s2); 8 x 8 windows; `wg` windows (warpgroups) a block, `nring`
+// weight stages, `grid` persistent blocks (ops/swinblock.py:tc_plan).
+// Returns the cudaGetLastError() code after the launch (0 on success).
+extern "C" int swin_tc_fwd(void* const* ptrs, int b, int h, int w, int c, int heads, int shift, int hidden, int wg,
+                           int nring, int grid, float eps, void* stream) {
+  if (!valid_tc(b, h, w, c, heads, shift, hidden, wg, nring, grid, 0)) return static_cast<int>(cudaErrorInvalidValue);
+  using swtc::bf16;
+  swtc::Args a = tc_args(ptrs, b, h, w, c, heads, shift, hidden, wg, nring, eps);
+  a.out = static_cast<bf16*>(ptrs[1]);
+  const bf16** params[12] = {&a.ln1_s, &a.ln1_b, &a.wqkv, &a.bqkv, &a.wproj, &a.bproj,
+                             &a.ln2_s, &a.ln2_b, &a.w1,   &a.b1,   &a.w2,    &a.b2};
+  for (int i = 0; i < 12; ++i) *params[i] = static_cast<const bf16*>(ptrs[2 + i]);
+  a.bias = static_cast<const float*>(ptrs[14]);
+  a.s1 = static_cast<const float*>(ptrs[15]);
+  a.s2 = static_cast<const float*>(ptrs[16]);
+  return static_cast<int>(launch_tc<false>(a, grid, static_cast<cudaStream_t>(stream)));
+}
+
+// bfloat16 on the tensor cores, two launches: the rows kernel (the forward
+// again and the chain back per window: dx, the bias map's, the LayerNorms'
+// and the biases' gradients) and the weight gradients (rows split in shares
+// of `dw_rows`, a multiple of 64).  ptrs: x, g, dx, the 12 parameters, the
+// bias map, s1, s2; bf16 scratch of M rows: LN1(x) C, att C, LN2(y) C,
+// GELU(z1) hidden, gmlp C, dz1 hidden, gproj C, dqkv 3C wide; then the 13
+// f32 gradients as for swin_block_bwd, zeroed before the call.  Returns
+// the first nonzero cudaGetLastError() code (0 on success).
+extern "C" int swin_tc_bwd(void* const* ptrs, int b, int h, int w, int c, int heads, int shift, int hidden, int wg,
+                           int nring, int grid, int dw_rows, float eps, void* stream) {
+  if (!valid_tc(b, h, w, c, heads, shift, hidden, wg, nring, grid, 1) || dw_rows <= 0 || dw_rows % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using swtc::bf16;
+  swtc::Args a = tc_args(ptrs, b, h, w, c, heads, shift, hidden, wg, nring, eps);
+  a.gout = static_cast<const bf16*>(ptrs[1]);
+  a.out = static_cast<bf16*>(ptrs[2]);
+  const bf16** params[12] = {&a.ln1_s, &a.ln1_b, &a.wqkv, &a.bqkv, &a.wproj, &a.bproj,
+                             &a.ln2_s, &a.ln2_b, &a.w1,   &a.b1,   &a.w2,    &a.b2};
+  for (int i = 0; i < 12; ++i) *params[i] = static_cast<const bf16*>(ptrs[3 + i]);
+  a.bias = static_cast<const float*>(ptrs[15]);
+  a.s1 = static_cast<const float*>(ptrs[16]);
+  a.s2 = static_cast<const float*>(ptrs[17]);
+  bf16** scratch[8] = {&a.h1s, &a.atts, &a.h2s, &a.zgs, &a.gmlps, &a.dz1s, &a.gprojs, &a.dqkvs};
+  for (int i = 0; i < 8; ++i) *scratch[i] = static_cast<bf16*>(ptrs[18 + i]);
+  float* grads[13];
+  for (int i = 0; i < 13; ++i) grads[i] = static_cast<float*>(ptrs[26 + i]);
+  a.dln1_s = grads[0];
+  a.dln1_b = grads[1];
+  a.dbqkv = grads[3];
+  a.dbproj = grads[5];
+  a.dln2_s = grads[6];
+  a.dln2_b = grads[7];
+  a.db1 = grads[9];
+  a.db2 = grads[11];
+  a.dbias = grads[12];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cudaError_t err = launch_tc<true>(a, grid, s)) return static_cast<int>(err);
+  const int m = a.nwin * 64;
+  swtc::DwArgs4 r{{rdtc::dw_job(a.h1s, a.dqkvs, grads[2], c, 3 * c), rdtc::dw_job(a.atts, a.gprojs, grads[4], c, c),
+                   rdtc::dw_job(a.h2s, a.dz1s, grads[8], c, hidden), rdtc::dw_job(a.zgs, a.gmlps, grads[10], hidden, c)},
+                  m, dw_rows};
+  return static_cast<int>(swtc::launch_dw(r, s));
 }

@@ -98,6 +98,13 @@ def _dgelu(x):
     return _dgelu_fast(x) if _is_fast(x.dtype) else _dgelu_exact(x)
 
 
+def _aligned(t):
+    """``t`` contiguous, starting on 16 bytes (the tensor-core kernels'
+    vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _stats(xf):
     """f32 row mean and fast variance max(0, E[x^2] - mu^2), keepdim."""
     mu = xf.mean(dim=-1, keepdim=True)

@@ -36,6 +36,7 @@ import torch
 
 from . import cuda_build
 from .blockmath import (  # noqa: F401  (the GELU helpers are part of this module's surface)
+    _aligned,
     _dgelu,
     _dgelu_exact,
     _dgelu_fast,
@@ -357,12 +358,6 @@ def _check(x, params):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
-
-
-def _aligned(t):
-    """``t`` contiguous, starting on 16 bytes (the kernels' vector loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _kernel_params(x, params):

@@ -26,14 +26,32 @@ the optional per-sample DropPath keep-scales s1, s2 multiplied in the
 dtype.  The attention scale is folded into the q columns of W_qkv and
 b_qkv by :func:`fused_swin_block`, so the block runs at scale 1.
 
-The kernels are ``csrc/swinblock.cu``, built by ``ops/cuda_build.py``: the
-forward is one launch (one thread block per window, everything between x
-and the output on chip); the backward two (the per-window gradient chain,
-then the weight gradients' and the bias map's reductions over all rows and
-windows).  :func:`fused_swin_block` is a ``torch.autograd.Function``: for a
-CUDA tensor its forward and backward launch those kernels; for a CPU
-tensor they take :func:`reference_block` and :func:`reference_block_bwd`.
-A CUDA tensor never falls back to them.
+The kernels are ``csrc/swinblock.cu``, built by ``ops/cuda_build.py``, in
+two routes that :func:`route` picks up front from the dtype and the shape:
+
+- bfloat16 blocks with 8 x 8 windows, C a multiple of 16 up to 192, heads
+  of 16 or 32 channels and an MLP width a multiple of 16 up to 384 run on
+  the tensor cores (``csrc/swinblock_tc.cuh``, ``wgmma``): a window's 64
+  tokens are the 64 rows of one product, one warpgroup owns a window, the
+  weights stream through a ring of shared-memory slabs that a block's
+  warpgroups share, and the attention and MLP intermediates stay in
+  registers.  The forward is one launch; the backward two (the forward
+  again and the chain back per window, with the bias map's gradient added
+  in place; then the four weight gradients as split-K products over the
+  scratch rows).  :func:`tc_plan` sizes the persistent grid.  The weights
+  are read as the module holds them.
+- float32, and every other bfloat16 shape, run on the CUDA cores in f32:
+  the forward is one launch (one thread block per window, everything
+  between x and the output on chip); the backward two (the per-window
+  gradient chain, then the weight gradients' and the bias map's reductions
+  over all rows and windows), which also read transposed copies of the
+  four weights.
+
+:func:`fused_swin_block` is a ``torch.autograd.Function``: for a CUDA
+tensor its forward and backward launch those kernels; for a CPU tensor they
+take :func:`reference_block` and :func:`reference_block_bwd`.  A CUDA
+tensor never falls back to them, and a bfloat16 CUDA tensor on the
+tensor-core route never to the CUDA-core kernels.
 """
 
 import ctypes
@@ -43,12 +61,17 @@ import numpy as np
 import torch
 
 from . import cuda_build, winattn
-from .blockmath import _dgelu, _gelu, _layernorm, _layernorm_bwd, _matmul, _matmul_dw, _matmul_dx
+from .blockmath import _aligned, _dgelu, _gelu, _layernorm, _layernorm_bwd, _matmul, _matmul_dw, _matmul_dx
 
 # Launches of the CUDA kernels in this process (the plain versions do not
-# count): the forward adds 1 per call, the backward 2 (its two launches).
+# count): the forward adds 1 per call, the backward BWD_LAUNCHES[route] (its
+# launches); tc_launches and tc_bwd_launches count those of the
+# tensor-core route alone.
 launches = 0
 bwd_launches = 0
+tc_launches = 0
+tc_bwd_launches = 0
+BWD_LAUNCHES = {"tc": 2, "cuda_core": 2}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VOID_P, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -62,6 +85,20 @@ MAX_C = 192
 MAX_HIDDEN = 384
 MAX_N = 64  # tokens of a window, ws * ws
 MAX_HEAD_DIM = 32
+
+# What csrc/swinblock_tc.cuh takes and how its shared memory is laid out
+# (its smem_bytes): per warpgroup (window) two token tiles forward, three
+# backward, of 64 tokens x C rounded up to 64 in bf16 (8 KB a 64-channel
+# chunk), the 3C channels of q, k, v transposed (128 bytes a channel) and
+# 2 KB of token statistics; a ring of `nring` weight slabs of one tile
+# each; the backward's f32 column sums (9C + hidden, rounded up to 4); the
+# slab table (40 bytes a slab); 1 KB of alignment slack.
+TC_HEAD_DIMS = (16, 32)
+SMEM_LIMIT = 232448
+SMS = 132
+_CHUNK = 8192
+# csrc/swinblock_tc.cuh: MAX_SLABS, sizeof(Slab), STATS_BYTES
+_MAX_SLABS, _SLAB_BYTES, _STATS_BYTES = 128, 40, 2048
 
 # Agreement of the kernels with the plain versions on the same inputs:
 # bounds on max |error| as fractions of max |ref|.  In f32 only the order
@@ -216,6 +253,66 @@ def fits(c, hidden, heads, ws) -> bool:
             and c // heads <= MAX_HEAD_DIM)
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def tc_smem(c, hidden, wg, nring, backward):
+    """Dynamic shared memory of a tensor-core block (bytes): ``wg`` windows,
+    ``nring`` weight slabs (csrc/swinblock_tc.cuh:smem_bytes)."""
+    cs = _cdiv(c, 64)
+    per_wg = (3 if backward else 2) * cs * _CHUNK + 3 * c * 128 + _STATS_BYTES
+    sums = 4 * ((9 * c + hidden + 3) & ~3) if backward else 0
+    return 1024 + nring * cs * _CHUNK + wg * per_wg + sums + tc_slabs(c, hidden, backward) * _SLAB_BYTES
+
+
+def tc_slabs(c, hidden, backward):
+    """The weight slabs a window's products take (csrc/swinblock_tc.cuh:
+    slab_count): 64-row slabs of qkv and proj in N chunks of 64 ceil(C / 64)
+    columns (backward 64), the MLP per 64-wide chunk of hidden, and
+    backward dh2, datt and dh1 per such N chunk."""
+    cs = _cdiv(c, 64)
+    nw = 64 * (1 if backward else cs)
+    halves, hc = _cdiv(c, nw), _cdiv(hidden, 64)
+    fwd = _cdiv(3 * c, nw) * cs + halves * cs + hc * (2 * cs if backward else cs + 1)
+    return fwd + (halves * (hc + cs + _cdiv(3 * c, 64)) if backward else 0)
+
+
+@functools.cache
+def tc_plan(nwin, c, hidden, backward):
+    """The tensor-core launch of ``nwin`` windows: (wg, nring, grid, smem).
+
+    Two windows a block (two warpgroups share each weight slab) where that
+    still gives every SM a block, else one; three ring stages where they
+    fit, else two.  The grid is persistent: block b takes the window groups
+    b, b + grid, ..., at most one block an SM for two warpgroups (their
+    registers fill it) and as many as fit for one (at most two)."""
+    if tc_slabs(c, hidden, backward) > _MAX_SLABS:
+        raise ValueError(f"C {c}, hidden {hidden}: more weight slabs than the kernel's table holds")
+    for wg in (2, 1):
+        for nring in (3, 2):
+            smem = tc_smem(c, hidden, wg, nring, backward)
+            if smem > SMEM_LIMIT:
+                continue
+            groups = _cdiv(nwin, wg)
+            if wg == 2 and groups < SMS:
+                break
+            per_sm = min(2 // wg, 233472 // (smem + 1024))
+            return wg, nring, min(groups, SMS * max(1, per_sm)), smem
+    raise ValueError(f"no tensor-core tiling fits C {c}, hidden {hidden}")
+
+
+@functools.cache
+def route(c, hidden, heads, ws, dtype):
+    """The route of a CUDA tensor's launches: ``"tc"`` (tensor cores) for
+    bfloat16 with 8 x 8 windows, C a multiple of 16 up to MAX_C, heads of
+    16 or 32 channels and hidden a multiple of 16 up to MAX_HIDDEN;
+    ``"cuda_core"`` for every other shape and dtype."""
+    ok = (dtype == torch.bfloat16 and ws * ws == MAX_N and c % 16 == 0 and c <= MAX_C and c % heads == 0
+          and c // heads in TC_HEAD_DIMS and hidden % 16 == 0 and hidden <= MAX_HIDDEN)
+    return "tc" if ok else "cuda_core"
+
+
 @functools.cache
 def _fwd_fn():
     fn = cuda_build.load("swinblock").swin_block_fwd
@@ -228,6 +325,22 @@ def _fwd_fn():
 def _bwd_fn():
     fn = cuda_build.load("swinblock").swin_block_bwd
     fn.argtypes = [ctypes.POINTER(_VOID_P)] + [_INT] * 10 + [_FLOAT, _VOID_P]
+    fn.restype = _INT
+    return fn
+
+
+@functools.cache
+def _tc_fwd_fn():
+    fn = cuda_build.load("swinblock").swin_tc_fwd
+    fn.argtypes = [ctypes.POINTER(_VOID_P)] + [_INT] * 10 + [_FLOAT, _VOID_P]
+    fn.restype = _INT
+    return fn
+
+
+@functools.cache
+def _tc_bwd_fn():
+    fn = cuda_build.load("swinblock").swin_tc_bwd
+    fn.argtypes = [ctypes.POINTER(_VOID_P)] + [_INT] * 11 + [_FLOAT, _VOID_P]
     fn.restype = _INT
     return fn
 
@@ -268,9 +381,8 @@ def _check(x, params, heads, ws, scales):
 
 def _kernel_params(x, params):
     """The 12 matrices and vectors in x's dtype and the bias map in f32,
-    contiguous, in the layouts the forward reads."""
-    return tuple(p.detach().to(x.dtype).contiguous() for p in params[:12]) + (
-        params[12].detach().float().contiguous(),)
+    contiguous and 16-byte aligned, in the layouts the forward reads."""
+    return tuple(_aligned(p.detach().to(x.dtype)) for p in params[:12]) + (_aligned(params[12].detach().float()),)
 
 
 def _kernel_scales(scales):
@@ -282,21 +394,32 @@ def _dims(x, params, heads, ws, shift):
     return [b, h, w, c, heads, ws, shift, params[8].shape[-1], _DTYPE_CODE[x.dtype]]
 
 
+def _route_of(x, params, heads, ws):
+    return route(x.shape[-1], params[8].shape[-1], heads, ws, x.dtype)
+
+
 def _launch_fwd(x, params, heads, ws, shift, eps, scales=None):
-    global launches
+    global launches, tc_launches
     _check(x, params, heads, ws, scales)
     kp = _kernel_params(x, params)
     s1, s2 = _kernel_scales(scales)
-    x = x.contiguous()
+    x = _aligned(x)
     out = torch.empty_like(x)
+    b, h, w, c = x.shape
+    hidden = kp[8].shape[-1]
+    tc = _route_of(x, params, heads, ws) == "tc"
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _fwd_fn()(
-            _ptrs((x, out, *kp, s1, s2)), *_dims(x, params, heads, ws, shift), eps,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        if tc:
+            wg, nring, grid, _ = tc_plan(b * h * w // 64, c, hidden, False)
+            err = _tc_fwd_fn()(_ptrs((x, out, *kp, s1, s2)), b, h, w, c, heads, shift, hidden, wg, nring, grid, eps,
+                               stream)
+        else:
+            err = _fwd_fn()(_ptrs((x, out, *kp, s1, s2)), *_dims(x, params, heads, ws, shift), eps, stream)
     if err != 0:
-        raise RuntimeError(f"swin_block_fwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"swin_{'tc' if tc else 'block'}_fwd launch failed with CUDA error {err}")
     launches += 1
+    tc_launches += int(tc)
     return out
 
 
@@ -316,39 +439,66 @@ def _splits(c, hidden, n_bias):
     return max(1, min(65535, -(-_REDUCE_TARGET_BLOCKS // tiles)))
 
 
+def tc_dw_rows(m, c, hidden):
+    """Rows of a share of the tensor-core weight-gradient launch, a multiple
+    of 64, for about eight of its 64 x 128 tile blocks an SM
+    (``tools/swin_sweep.py`` put four, eight and 16 within 3% of each
+    other at the default SwinIR's blocks, the fastest changing between
+    runs)."""
+    tiles = (_cdiv(c, 64) * _cdiv(3 * c, 128) + _cdiv(c, 64) * _cdiv(c, 128) + _cdiv(c, 64) * _cdiv(hidden, 128)
+             + _cdiv(hidden, 64) * _cdiv(c, 128))
+    return 64 * _cdiv(_cdiv(m, max(1, min(_cdiv(m, 64), _cdiv(8 * SMS, tiles)))), 64)
+
+
 def _launch_bwd(x, params, gout, heads, ws, shift, eps, scales=None):
-    """(dx, the 12 parameter gradients, dbias) by the two backward launches;
-    the parameter gradients in f32."""
-    global bwd_launches
+    """(dx, the 12 parameter gradients, dbias) by the backward launches of
+    the route (BWD_LAUNCHES); the parameter gradients in f32."""
+    global bwd_launches, tc_bwd_launches
     _check(x, params, heads, ws, scales)
     kp = _kernel_params(x, params)
     s1, s2 = _kernel_scales(scales)
-    # the backward also reads W_qkv as (3C, C), W_proj^T, W_fc1 as (hidden, C), W_fc2 as (C, hidden)
-    wt = tuple(kp[i].t().contiguous() for i in (2, 4, 8, 10))
-    x = x.contiguous()
-    gout = gout.to(x.dtype).contiguous()
+    x = _aligned(x)
+    gout = _aligned(gout.to(x.dtype))
     b, h, w, c = x.shape
     hidden, n = kp[8].shape[-1], ws * ws
     m, nwin = b * h * w, b * h * w // n
     dt = {"dtype": x.dtype, "device": x.device}
     f32 = {"dtype": torch.float32, "device": x.device}
-    # scratch rows of the reduction launch, window by window: LN1(x), the
-    # attention output, LN2(y), fc1's output and its GELU, the cotangents
-    # of fc2, fc1, proj and qkv; the bias map's per-window gradients (f32)
-    widths = (c, c, c, hidden, hidden, c, hidden, c, 3 * c)
-    scratch = [torch.empty((m, wd), **dt) for wd in widths]
-    ds = torch.empty((nwin, heads * n * n), **f32)
     dx = torch.empty_like(x)
     grads = [torch.zeros(p.shape, **f32) for p in kp]
-    ptrs = _ptrs((x, gout, dx, *kp, *wt, s1, s2, *scratch, ds, *grads))
+    tc = _route_of(x, params, heads, ws) == "tc"
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _bwd_fn()(
-            ptrs, *_dims(x, params, heads, ws, shift), _splits(c, hidden, heads * n * n), eps,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        if tc:
+            # scratch rows of the weight gradients, window by window: LN1(x),
+            # the attention output, LN2(y), GELU(z1), the cotangents of fc2,
+            # fc1, proj and qkv
+            widths = (c, c, c, hidden, c, hidden, c, 3 * c)
+            scratch = [torch.empty((m, wd), **dt) for wd in widths]
+            wg, nring, grid, _ = tc_plan(nwin, c, hidden, True)
+            err = _tc_bwd_fn()(
+                _ptrs((x, gout, dx, *kp, s1, s2, *scratch, *grads)), b, h, w, c, heads, shift, hidden, wg, nring,
+                grid, tc_dw_rows(m, c, hidden), eps, stream,
+            )
+        else:
+            # the CUDA-core backward also reads W_qkv as (3C, C), W_proj^T,
+            # W_fc1 as (hidden, C), W_fc2 as (C, hidden); its scratch rows, window
+            # by window: LN1(x), the attention output, LN2(y), fc1's output and
+            # its GELU, the cotangents of fc2, fc1, proj and qkv; the bias map's
+            # per-window gradients (f32)
+            wt = tuple(kp[i].t().contiguous() for i in (2, 4, 8, 10))
+            widths = (c, c, c, hidden, hidden, c, hidden, c, 3 * c)
+            scratch = [torch.empty((m, wd), **dt) for wd in widths]
+            ds = torch.empty((nwin, heads * n * n), **f32)
+            err = _bwd_fn()(
+                _ptrs((x, gout, dx, *kp, *wt, s1, s2, *scratch, ds, *grads)), *_dims(x, params, heads, ws, shift),
+                _splits(c, hidden, heads * n * n), eps, stream,
+            )
     if err != 0:
-        raise RuntimeError(f"swin_block_bwd launch failed with CUDA error {err}")
-    bwd_launches += 2
+        raise RuntimeError(f"swin_{'tc' if tc else 'block'}_bwd launch failed with CUDA error {err}")
+    k = BWD_LAUNCHES["tc" if tc else "cuda_core"]
+    bwd_launches += k
+    tc_bwd_launches += k if tc else 0
     return (dx, *grads)
 
 

@@ -487,11 +487,13 @@ def test_swinblock_fwd_bwd_match_plain(device, shape, shifted, scaled, dtype):
     b, h, w, c, heads, ws, hidden = shape
     x, params, scales, gout = _swin_inputs(device, dtype, *shape)
     kw = dict(heads=heads, ws=ws, shift=ws // 2 if shifted else 0, eps=1e-6, scales=scales if scaled else None)
+    route = swinblock.route(c, hidden, heads, ws, dtype)
+    tc, n_bwd = route == "tc", swinblock.BWD_LAUNCHES[route]
     with torch.no_grad():
-        before = (swinblock.launches, swinblock.bwd_launches)
+        before = _swin_counts()
         out = swinblock._launch_fwd(x, params, kw["heads"], ws, kw["shift"], 1e-6, kw["scales"])
         grads = swinblock._launch_bwd(x, params, gout, kw["heads"], ws, kw["shift"], 1e-6, kw["scales"])
-        assert (swinblock.launches, swinblock.bwd_launches) == (before[0] + 1, before[1] + 2)
+        assert _swin_counts() == (before[0] + 1, before[1] + n_bwd, before[2] + int(tc), before[3] + n_bwd * tc)
         ref = swinblock.reference_block(x, params, **kw)
         ref_grads = swinblock.reference_block_bwd(x, params, gout, **kw)
     torch.cuda.synchronize()
@@ -505,17 +507,24 @@ def test_swinblock_fwd_bwd_match_plain(device, shape, shifted, scaled, dtype):
         assert err <= bound, f"{name}: max abs error {err} > {bound}"
 
 
+def _swin_counts():
+    return swinblock.launches, swinblock.bwd_launches, swinblock.tc_launches, swinblock.tc_bwd_launches
+
+
 def test_swinblock_autograd_goes_through_kernels(device):
-    """Under autograd a CUDA tensor launches the forward and both backward
-    kernels; the scale fold and the parameters' f32 gradients come back as
-    the plain versions give them."""
+    """Under autograd a bf16 CUDA tensor on the tensor-core route launches
+    the tensor-core forward and both backward kernels (counted); the scale
+    fold and the parameters' f32 gradients come back as the plain versions
+    give them."""
     x, params, scales, gout = _swin_inputs(device, torch.bfloat16, 2, 16, 16, 48, 3, 8, 96)
+    assert swinblock.route(48, 96, 3, 8, torch.bfloat16) == "tc"
     kw = dict(heads=3, scale=0.25, ws=8, shift=4, eps=1e-6, scales=scales)
     xk = x.clone().requires_grad_()
     pk = [p.clone().requires_grad_() for p in params]
-    f0, b0 = swinblock.launches, swinblock.bwd_launches
+    f0, b0, t0, tb0 = _swin_counts()
     swinblock.fused_swin_block(xk, pk, **kw).backward(gout)
-    assert (swinblock.launches, swinblock.bwd_launches) == (f0 + 1, b0 + 2)
+    n_bwd = swinblock.BWD_LAUNCHES["tc"]
+    assert _swin_counts() == (f0 + 1, b0 + n_bwd, t0 + 1, tb0 + n_bwd)
     folded = [p.clone().requires_grad_() for p in params]
     with torch.no_grad():
         ref = swinblock.reference_block_bwd(x, swinblock._fold_scale(folded, 0.25), gout,
@@ -546,6 +555,60 @@ def test_swinblock_refuses_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="head dimension"):
         xw, pw, _, _ = _swin_inputs(device, torch.float32, 1, 8, 8, 132, 2, 8, 96)
         swinblock._launch_fwd(xw, pw, 2, 8, 0, 1e-6)
+
+
+# (B, H, W, C, heads, hidden) of the bf16 tensor-core route (8 x 8
+# windows): C 32, 96 and 192, heads of 16 and 32 channels, hidden not a
+# multiple of 64; 289 and 320 windows take two windows a block (289 leaves
+# the last block's second warpgroup without a window, 320 gives some
+# blocks two window groups), the small ones one.
+TC_SHAPES = [(1, 136, 136, 32, 2, 64), (1, 136, 136, 32, 1, 96), (2, 16, 16, 96, 6, 192), (5, 64, 64, 96, 3, 192),
+             (1, 16, 24, 192, 12, 384), (1, 136, 136, 192, 6, 384), (3, 16, 8, 80, 5, 144)]
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["eval", "droppath"])
+@pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_swinblock_tc_matches_plain(device, shape, shifted, scaled):
+    """The tensor-core forward and both backward launches against
+    reference_block and reference_block_bwd within the unchanged
+    swinblock.TOLERANCE and BWD_TOLERANCE (and the row-count bound of the
+    sums), with the tensor-core launches counted."""
+    b, h, w, c, heads, hidden = shape
+    assert swinblock.route(c, hidden, heads, 8, torch.bfloat16) == "tc"
+    x, params, scales, gout = _swin_inputs(device, torch.bfloat16, b, h, w, c, heads, 8, hidden)
+    kw = dict(heads=heads, ws=8, shift=4 if shifted else 0, eps=1e-6, scales=scales if scaled else None)
+    n_bwd = swinblock.BWD_LAUNCHES["tc"]
+    with torch.no_grad():
+        before = _swin_counts()
+        out = swinblock._launch_fwd(x, params, heads, 8, kw["shift"], 1e-6, kw["scales"])
+        grads = swinblock._launch_bwd(x, params, gout, heads, 8, kw["shift"], 1e-6, kw["scales"])
+        assert _swin_counts() == (before[0] + 1, before[1] + n_bwd, before[2] + 1, before[3] + n_bwd)
+        ref = swinblock.reference_block(x, params, **kw)
+        ref_grads = swinblock.reference_block_bwd(x, params, gout, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    err, rel, bound = swinblock.errors(out, ref)
+    print(f"plan {swinblock.tc_plan(b * h * w // 64, c, hidden, True)}: out {err:.3g} (rel {rel:.2g}) <= {bound:.3g}")
+    assert err <= bound, f"out: max abs error {err} > {bound}"
+    errs = swinblock.bwd_errors(grads, ref_grads)
+    print(" ".join(f"{k} {e:.3g} (rel {r:.2g})" for k, (e, r, _) in errs.items()))
+    for name, (err, _, bound) in errs.items():
+        assert err <= bound, f"{name}: max abs error {err} > {bound}"
+
+
+def test_swinblock_tc_failure_raises(device, monkeypatch):
+    """A refused tensor-core launch raises: a bf16 CUDA tensor on the route
+    never falls back to the CUDA-core kernels or the plain version."""
+    x, params, _, gout = _swin_inputs(device, torch.bfloat16, 2, 16, 16, 96, 6, 8, 192)
+    monkeypatch.setattr(swinblock, "tc_plan", lambda *a: (3, 3, 1, 0))  # three warpgroups: refused
+    before = _swin_counts()
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="swin_tc_fwd"):
+            swinblock._launch_fwd(x, params, 6, 8, 0, 1e-6)
+        with pytest.raises(RuntimeError, match="swin_tc_bwd"):
+            swinblock._launch_bwd(x, params, gout, 6, 8, 0, 1e-6)
+    assert _swin_counts() == before
 
 
 # (batch, H, W, C, heads, ws): the default SwinIR's attention, small and at

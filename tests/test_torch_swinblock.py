@@ -226,3 +226,114 @@ def test_shift_offsets_mod_image_size_deep_group():
         got, want = got.grad.double().numpy(), np.asarray(want, np.float64)
         rel = np.sqrt(np.mean((got - want) ** 2)) / np.sqrt(np.mean(want**2))
         assert rel < 5e-3, (i, rel)
+
+
+# ---- the bf16 tensor-core route (csrc/swinblock_tc.cuh): which shapes take
+# it, and its launch plan; the kernels themselves run only on the card
+# (tests/test_torch_cuda_kernels.py)
+
+# (C, hidden, heads, ws, dtype) of the default SwinIR's blocks (C 96, 6 heads
+# of 16, 8 x 8 windows, MLP 192) and of other shapes on the route: C 32 and
+# 192, heads of 32, hidden not a multiple of 64
+TC_SHAPES = [(96, 192, 6, 8), (32, 64, 2, 8), (32, 96, 1, 8), (192, 384, 12, 8), (192, 384, 6, 8), (80, 144, 5, 8),
+             (16, 16, 1, 8)]
+# ... and off it: f32, 7 x 7 windows, C 240 (past MAX_C), heads of 24 and 30,
+# hidden no multiple of 16, C no multiple of 16, hidden past MAX_HIDDEN
+OFF_ROUTE = [((96, 192, 6, 8), torch.float32), ((96, 192, 6, 7), torch.bfloat16), ((240, 480, 8, 8), torch.bfloat16),
+             ((96, 192, 4, 8), torch.bfloat16), ((180, 360, 6, 8), torch.bfloat16), ((96, 200, 6, 8), torch.bfloat16),
+             ((72, 144, 3, 8), torch.bfloat16), ((96, 400, 6, 8), torch.bfloat16), ((96, 192, 6, 4), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_route_takes_bf16_blocks_to_the_tensor_cores(shape):
+    assert swinblock.route(*shape, torch.bfloat16) == "tc"
+    assert swinblock.route(*shape, torch.float32) == "cuda_core"
+
+
+@pytest.mark.parametrize("shape,dtype", OFF_ROUTE, ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_route_keeps_other_shapes_on_the_cuda_cores(shape, dtype):
+    assert swinblock.route(*shape, dtype) == "cuda_core"
+
+
+def test_bwd_launches_agree_with_the_route():
+    """Every route has its backward launch count, the tensor-core route's two
+    (the rows kernel and the weight gradients), and chip_smoke.py's launches
+    of a SwinIR() step follow the route of each dtype."""
+    import chip_smoke
+
+    assert swinblock.BWD_LAUNCHES == {"tc": 2, "cuda_core": 2}
+    for shape in TC_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert swinblock.route(*shape, dtype) in swinblock.BWD_LAUNCHES
+    for dtype in (torch.float32, torch.bfloat16):
+        route = swinblock.route(96, 192, 6, 8, dtype)
+        n = dict(zip(chip_smoke.COUNTERS, chip_smoke._per_step(kind="SwinIR", dtype=dtype)))
+        tc = route == "tc"
+        assert (n["swinblock_fwd"], n["swinblock_bwd"]) == (16, 16 * swinblock.BWD_LAUNCHES[route])
+        assert (n["swinblock_tc_fwd"], n["swinblock_tc_bwd"]) == (16 * tc, 16 * tc * swinblock.BWD_LAUNCHES["tc"])
+
+
+def _windows(batch, h, w):
+    return batch * (h // 8) * (w // 8)
+
+
+def _windows_taken(nwin, wg, grid):
+    """The windows each persistent block takes, as the kernels' loop does:
+    block b the window groups b, b + grid, ..., group q the windows q wg ..
+    q wg + wg - 1 below nwin."""
+    groups = -(-nwin // wg)
+    return [[q * wg + w for q in range(b, groups, grid) for w in range(wg) if q * wg + w < nwin] for b in range(grid)]
+
+
+# window counts: SwinIR()'s blocks at batch 16 and 1 (4,096 and 256 of its
+# 128^2 tiles), ragged counts for two windows a block (289, 333) and small
+# images that fill no card
+WINDOW_COUNTS = [_windows(16, 128, 128), _windows(1, 128, 128), 289, 333, 264, 265, 131, 8, 3, 1]
+
+
+@pytest.mark.parametrize("nwin", WINDOW_COUNTS)
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tc_plan_covers_every_window_once_and_fits(shape, nwin):
+    """Forward and backward rows plans: the persistent blocks' window groups
+    cover every window exactly once (the last group may hold fewer windows
+    than the block's warpgroups), each block's shared memory fits the
+    H100's 232,448 bytes, and the grid puts a block on every SM (132) when
+    the windows allow it."""
+    c, hidden, heads, ws = shape
+    for backward in (False, True):
+        wg, nring, grid, smem = swinblock.tc_plan(nwin, c, hidden, backward)
+        assert wg in (1, 2) and nring in (2, 3)
+        assert smem == swinblock.tc_smem(c, hidden, wg, nring, backward) <= swinblock.SMEM_LIMIT
+        taken = [w for block in _windows_taken(nwin, wg, grid) for w in block]
+        assert sorted(taken) == list(range(nwin))
+        assert grid <= -(-nwin // wg) and grid >= min(swinblock.SMS, -(-nwin // wg))
+        if -(-nwin // 2) >= swinblock.SMS and swinblock.tc_smem(c, hidden, 2, 2, backward) <= swinblock.SMEM_LIMIT:
+            assert wg == 2, "two windows a block where that still fills the card"
+
+
+def test_tc_plan_fills_the_card_at_swinir_batches():
+    """At batch 16 both kernels run 132 persistent blocks of two windows;
+    at batch 1 (256 windows) one window a block, so that all 132 SMs have
+    one (128 blocks of two would leave 4 idle)."""
+    for backward in (False, True):
+        assert swinblock.tc_plan(_windows(16, 128, 128), 96, 192, backward)[:3] == (2, 3, 132)
+        wg, _, grid, _ = swinblock.tc_plan(_windows(1, 128, 128), 96, 192, backward)
+        assert (wg, grid) == (1, 132)
+
+
+def test_tc_shared_memory_and_slabs():
+    """The shared-memory sizing and the slab table mirror the kernel's
+    layout: per window two (forward) or three (backward) 64-token tiles, the
+    transposed q, k, v and the token statistics; the ring; the backward's
+    column sums; 40 bytes a slab; 1 KB of slack."""
+    assert swinblock.tc_smem(96, 192, 2, 3, False) == (
+        1024 + 3 * 16384 + 2 * (2 * 16384 + 288 * 128 + 2048) + swinblock.tc_slabs(96, 192, False) * 40)
+    assert swinblock.tc_smem(96, 192, 2, 3, True) == (
+        1024 + 3 * 16384 + 2 * (3 * 16384 + 288 * 128 + 2048) + 4 * (9 * 96 + 192) + swinblock.tc_slabs(96, 192, True) * 40)
+    # forward: qkv in 3 N chunks of 128 x 2 K slabs, proj 2, the MLP 3 x (2 + 1)
+    assert swinblock.tc_slabs(96, 192, False) == 6 + 2 + 9
+    # backward: qkv 5 x 2, proj 2 x 2, the MLP 3 x (2 + 2), dh2 2 x 3, datt 2 x 2, dh1 2 x 5
+    assert swinblock.tc_slabs(96, 192, True) == 10 + 4 + 12 + 6 + 4 + 10
+    for shape in TC_SHAPES:
+        for backward in (False, True):
+            assert swinblock.tc_slabs(shape[0], shape[1], backward) <= swinblock._MAX_SLABS
