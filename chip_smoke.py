@@ -9,10 +9,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. build: the CUDA kernel sources are compiled with nvcc, all at once
    (seconds, registers and spills printed); then the SASS of the libraries
    with tensor-core kernels, convchain, rdtail and swinblock
-   (``cuobjdump``): each kernel's HGMMA (wgmma) and HMMA (mma.sync) count
-   beside its registers, shared memory and local bytes, failing if
+   (``cuobjdump``): each kernel's HGMMA (wgmma), HMMA (mma.sync) and FFMA
+   count beside its registers, shared memory and local bytes, failing if
    cuobjdump is missing, a tensor-core kernel (a name with ``_tc_``) has no
-   HGMMA or a tensor-core Swin-block kernel uses local memory;
+   HGMMA, a tensor-core Swin-block kernel uses local memory, or an f32
+   CUDA-core backward kernel on ``csrc/f32gemm.cuh`` (``_f32_`` or
+   ``gemm_jobs`` in its name) has no FFMA, any HGMMA or HMMA, or local
+   memory;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with times (CUDA events), its bound
    and a library yardstick: the convchain forward and backward at every
@@ -22,10 +25,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    by 255, the pool levels at 256^2, 128^2 and 64^2, the last level at
    32^2), the single-scale SSIM at 512^2 and at windows 7 and 15, and one
    bf16 ssim call, which takes the band-matrix path; the convchain shapes
-   include the RDResUNet decoder's; the RDNet block tail forward and
+   include the RDResUNet decoder's, and the f32 backward's dx and dW
+   launches are timed apart (device time, ``torch.profiler``); the RDNet
+   block tail forward and
    backward at the 21 dense blocks' shapes of the full-width RDResUNet x4
    at batch 16, in f32 and bf16 (every bf16 one on the tensor-core route,
-   each shape's route and TFLOP/s printed); the whole Swin block forward
+   each shape's route and TFLOP/s printed); both f32 CUDA-core backward
+   kernels also at ragged shapes (``RAGGED_CONV``, ``RAGGED_TAILS``); the
+   whole Swin block forward
    (eval and with DropPath keep-scales) and backward at the default SwinIR's blocks
    at batch 16 ((16, 128, 128, 96), unshifted and shifted), in f32 (CUDA
    cores) and bf16 (tensor cores; route, plan and TFLOP/s printed, and the
@@ -57,11 +64,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    bf16 and in f32 on 512^2 uint8 patches from ``PatchLoader`` at batch 16
    (device augment, downscale, Poisson noise; ``SSIMLoss(mix=0.8,
    ms=True)``; AdamW), with the launch counts checked per step and one more
-   bf16 step traced by ``torch.profiler`` (device time by kernel group,
-   busy share, top kernels), then one
+   step per dtype traced by ``torch.profiler`` (device time by kernel
+   group, busy share, top kernels), then one
    f32 step on 2 samples held against the same step on the CPU; then the
-   same steps with the full-width ``RDResUNet()`` (one bf16 step traced)
-   and ``SwinIR()`` (DropPath live, 16 whole-block forwards and 32 backward
+   same steps with the full-width ``RDResUNet()`` (one step per dtype
+   traced) and ``SwinIR()`` (DropPath live, 16 whole-block forwards and 32 backward
    launches a step, bf16's counted apart on the tensor cores, and one more
    step per dtype traced);
 6. train_paired: the full-width ResUNet in bf16 compute, batch 16, over
@@ -240,7 +247,7 @@ TC_LIBS = ("convchain", "convchain_bwd", "rdtail", "swinblock")
 
 def _kernel_label(mangled):
     """convchain_tc_fwd_kernel<2,128,1> from the mangled name."""
-    m = re.search(r"\d((?:convchain|rdtail|swin)\w*?_kernel)(?:I(\w*?)E)?E", mangled)
+    m = re.search(r"\d((?:convchain|rdtail|swin|gemm_jobs)\w*?_kernel)(?:I(\w*?)E)?E", mangled)
     if not m:
         return mangled[:60]
     targs = m.group(2) or ""
@@ -249,18 +256,26 @@ def _kernel_label(mangled):
     return f"{m.group(1)}<{','.join(args)}>" if m.group(2) is not None else m.group(1)
 
 
+def _f32_core(name):
+    """Whether a kernel is one of the f32 CUDA-core backward kernels on
+    csrc/f32gemm.cuh."""
+    return "_f32_" in name or "gemm_jobs" in name
+
+
 def check_sass(builds):
-    """Phase 2b: each kernel of TC_LIBS with its count of HGMMA (wgmma) and
-    HMMA (mma.sync) instructions in the SASS, its registers, shared memory
-    (static) and local (spill) bytes (``cuobjdump -sass`` and
+    """Phase 2b: each kernel of TC_LIBS with its count of HGMMA (wgmma),
+    HMMA (mma.sync) and FFMA instructions in the SASS, its registers, shared
+    memory (static) and local (spill) bytes (``cuobjdump -sass`` and
     ``-res-usage``).  Fails if cuobjdump is missing, a library has no
-    tensor-core kernel, a tensor-core kernel has no HGMMA, or a tensor-core
-    Swin-block kernel uses local memory."""
+    tensor-core kernel, a tensor-core kernel has no HGMMA, a tensor-core
+    Swin-block kernel uses local memory, or an f32 CUDA-core backward kernel
+    (:func:`_f32_core`) has no FFMA, a tensor-core instruction of any kind
+    (no TF32 crept in) or local memory."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         raise RuntimeError("cuobjdump not found: the SASS of the tensor-core kernels cannot be checked")
-    print("phase sass: convchain, rdtail and swinblock kernels, tensor-core instructions (cuobjdump -sass) | REG, "
-          "static SHARED, LOCAL (cuobjdump -res-usage)")
+    print("phase sass: convchain, rdtail and swinblock kernels, tensor-core and FFMA instructions (cuobjdump -sass) "
+          "| REG, static SHARED, LOCAL (cuobjdump -res-usage)")
     for lib in TC_LIBS:
         path = str(builds[lib][0])
         sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300, check=True).stdout
@@ -273,35 +288,40 @@ def check_sass(builds):
             m = re.search(r"Function : (\S+)", line)
             if m:
                 current = m.group(1)
-                counts[current] = [0, 0]
+                counts[current] = [0, 0, 0]
             elif current is not None:
                 counts[current][0] += len(re.findall(r"\bHGMMA\b", line))
                 counts[current][1] += len(re.findall(r"\bHMMA\b", line))
+                counts[current][2] += len(re.findall(r"\bFFMA\b", line))
         tc = [k for k in counts if "_tc_" in k]
         if not tc:
             raise RuntimeError(f"{lib}: no tensor-core kernel in the SASS")
-        for name, (hgmma, hmma) in sorted(counts.items(), key=lambda kv: _kernel_label(kv[0])):
+        for name, (hgmma, hmma, ffma) in sorted(counts.items(), key=lambda kv: _kernel_label(kv[0])):
             reg, shared, local = usage.get(name, ("?", "?", "?"))
             bad = "_tc_" in name and hgmma == 0
-            spills = "_tc_" in name and "swin" in name and local != "0"
-            print(f"  {lib}.cu {_kernel_label(name):36s} HGMMA {hgmma:4d} HMMA {hmma:4d} | REG {reg} SHARED "
-                  f"{shared} LOCAL {local}" + ("  <-- NO HGMMA" if bad else "") + ("  <-- LOCAL MEMORY" if spills else ""))
+            spills = ("_tc_" in name and "swin" in name or _f32_core(name)) and local != "0"
+            not_f32 = _f32_core(name) and (ffma == 0 or hgmma or hmma)
+            print(f"  {lib}.cu {_kernel_label(name):36s} HGMMA {hgmma:4d} HMMA {hmma:4d} FFMA {ffma:5d} | REG {reg} "
+                  f"SHARED {shared} LOCAL {local}" + ("  <-- NO HGMMA" if bad else "")
+                  + ("  <-- LOCAL MEMORY" if spills else "") + ("  <-- NOT ON THE FMA UNITS" if not_f32 else ""))
             if bad:
                 raise RuntimeError(f"{name}: a tensor-core kernel without HGMMA")
             if spills:
-                raise RuntimeError(f"{name}: a tensor-core Swin-block kernel with local memory ({local} bytes)")
+                raise RuntimeError(f"{name}: a kernel that must not spill has local memory ({local} bytes)")
+            if not_f32:
+                raise RuntimeError(f"{name}: an f32 CUDA-core kernel with FFMA {ffma}, HGMMA {hgmma}, HMMA {hmma}")
 
 
 # Kernel-name fragments of the device-time groups that profile_device sums
 KERNEL_GROUPS = (("swinblock fwd", ("swin_tc_fwd", "swin_fwd")), ("swinblock bwd rows", ("swin_tc_rows", "swin_bwd_rows")),
                  ("swinblock bwd dW and bias map", ("swin_tc_dw", "swin_reduce")), ("winattn", ("swin_winattn",)),
                  ("ssimfused", ("ssim_",)), ("convchain fwd", ("convchain_tc_fwd", "convchain_fwd")),
-                 ("convchain bwd dx", ("convchain_tc_dx", "convchain_bwd_dx")),
-                 ("convchain bwd dW", ("convchain_tc_dw", "convchain_bwd_dw")),
+                 ("convchain bwd dx", ("convchain_tc_dx", "convchain_f32_dx")),
+                 ("convchain bwd dW", ("convchain_tc_dw", "convchain_f32_dw")),
                  ("rdtail fwd", ("rdtail_tc_fwd", "rdtail_fwd")),
-                 ("rdtail bwd rows", ("rdtail_tc_rows", "rdtail_bwd_rows")),
-                 ("rdtail bwd GEMMs (dh, dW)", ("rdtail_tc_dh", "rdtail_tc_dw", "rdtail_dw")),
-                 ("rdtail LayerNorm bwd", ("rdtail_ln_bwd",)),
+                 ("rdtail bwd rows", ("rdtail_tc_rows", "rdtail_f32_rows")),
+                 ("rdtail bwd GEMMs (dh, dW)", ("rdtail_tc_dh", "rdtail_tc_dw", "gemm_jobs")),
+                 ("rdtail LayerNorms (f32 rows, bwd)", ("rdtail_ln_bwd", "rdtail_f32_ln")),
                  ("chanstats", ("dual_sums",)),
                  ("cuDNN / cuBLAS", ("cudnn", "conv", "gemm", "xmma", "cutlass", "sm90", "sm80", "fft", "winograd",
                                      "flip_filter", "complex", "region_transform", "wgrad", "dgrad", "fprop")))
@@ -343,6 +363,28 @@ def profile_device(fn, label):
           f"{100 - 100 * busy / wall_ms:.1f}%); by group: "
           + ", ".join(f"{g} {ms:.2f} ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
           + f"; largest: {largest(kernels, 4)}; largest of the rest: {largest(rest, 3)}")
+
+
+def device_split_ms(fn, groups, reps=5):
+    """Device time of one call of ``fn`` by kernel group ({label: name
+    fragments}), from torch.profiler over ``reps`` calls after a warm one;
+    None where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out, seen = dict.fromkeys(groups, 0.0), False
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0:
+            seen = True
+            label = next((g for g, keys in groups.items() if any(k in evt.key for k in keys)), None)
+            if label is not None:
+                out[label] += evt.self_device_time_total / 1e3 / reps
+    return out if seen else None
 
 
 def bound(nbytes, ops, dtype):
@@ -470,9 +512,11 @@ def check_kernels(device, gen):
 
 def check_bwd(device, gen):
     """Phase 3b: the convchain backward kernels against reference_layer_bwd
-    at every layer shape of both models, with the prologue on and off;
-    returns per-dtype, per-model totals over one backward (each shape
-    weighted by how often the model runs it)."""
+    at every layer shape of both models, with the prologue on and off, fed
+    the weight layout the autograd forward keeps for them
+    (``convchain.bwd_weight``); the f32 dx and dW launches also timed apart
+    (device time, torch.profiler); returns per-dtype, per-model totals over
+    one backward (each shape weighted by how often the model runs it)."""
     from pssr2_tpu_torch.ops import convchain
 
     totals = {}
@@ -482,6 +526,7 @@ def check_bwd(device, gen):
     )
     for dtype in (torch.float32, torch.bfloat16):
         tot = {"ResUNet": _new_totals(), "RDResUNet": _new_totals()}
+        split_tot = {"ResUNet": {"dx": 0.0, "dW": 0.0}, "RDResUNet": {"dx": 0.0, "dW": 0.0}}
         for (cin, cout, res), per_model in conv_shapes().items():
             x, weight, bias, ab = _conv_inputs(device, gen, dtype, cin, cout, res)
             gy = torch.randn(BATCH, res, res, cout, device=device, generator=gen).to(dtype)
@@ -489,6 +534,7 @@ def check_bwd(device, gen):
             gs2 = 0.01 * torch.randn(cout, device=device, generator=gen)
             x_nchw, g_nchw = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)  # channels-last memory
             w_dt = weight.to(dtype)
+            wkb = convchain.bwd_weight(weight, dtype)  # made by the forward, kept for the backward
 
             def library():
                 torch.nn.grad.conv2d_input(x_nchw.shape, w_dt, g_nchw, padding=1)
@@ -499,21 +545,26 @@ def check_bwd(device, gen):
                 counts = {m: c[int(prologue)] for m, c in per_model.items()}
                 a = ab if prologue else None
                 b_ms, b_by = bwd_bound_ms(BATCH, res, cin, cout, dtype, prologue)
+                split = None
                 with torch.no_grad():
                     y, _, _ = convchain.fused_conv_layer(x, weight, bias, a)
                     args = (x, weight, y, gy, gs1, gs2, a)
-                    got = convchain._launch_bwd(*args)
+                    got = convchain._launch_bwd(*args, wkb)
                     ref = convchain.reference_layer_bwd(*args)
                     torch.cuda.synchronize()
                     errs = convchain.bwd_errors(got, ref)
-                    k_ms = cuda_ms(lambda: convchain._launch_bwd(*args))
+                    k_ms = cuda_ms(lambda: convchain._launch_bwd(*args, wkb))
                     p_ms = cuda_ms(lambda: convchain.reference_layer_bwd(*args))
+                    if dtype == torch.float32 and any(counts.values()):
+                        split = device_split_ms(lambda: convchain._launch_bwd(*args, wkb),
+                                                {"dx": ("convchain_f32_dx",), "dW": ("convchain_f32_dw",)})
                 ok = all(err <= lim for err, _, lim in errs.values())
                 print(
                     f"  {str(dtype)[6:]:8s} {cin:4d}->{cout:4d} @{res:3d} prologue={int(prologue)} {counts}: "
                     + " ".join(f"{k} {e:.3g} (rel {r:.2g}) <= {b:.3g}" for k, (e, r, b) in errs.items())
                     + f" | {k_ms:.4f} {p_ms:.4f} {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), kernel "
                     f"{4.0 * BATCH * res * res * 9 * cin * cout / k_ms / 1e9:.1f} TFLOP/s"
+                    + ("" if split is None else f"; device dx {split['dx']:.4f} ms, dW {split['dW']:.4f} ms")
                     + ("" if ok else "  <-- DISAGREES")
                 )
                 if not ok:
@@ -521,9 +572,77 @@ def check_bwd(device, gen):
                 for m, count in counts.items():
                     _add(tot[m], count, k_ms, p_ms, lib_ms, b_ms, b_by,
                          2 * 2.0 * BATCH * res * res * 9 * cin * cout, max(e for e, _, _ in errs.values()))
+                    if split is not None:
+                        split_tot[m]["dx"] += count * split["dx"]
+                        split_tot[m]["dW"] += count * split["dW"]
         totals[dtype] = tot
         _print_totals("backward", dtype, tot, "conv2d_input + conv2d_weight")
+        if dtype == torch.float32:
+            for m, sp in split_tot.items():
+                print(f"  {dtype}: one backward of {m}'s {tot[m]['layers']} ResBlock layers, device time: dx "
+                      f"{sp['dx']:.3f} ms, dW {sp['dW']:.3f} ms" if sp["dx"] else
+                      f"  {dtype}: {m}'s dx / dW device split: not measured (the profiler recorded no device time)")
     return totals
+
+
+# Ragged shapes of the f32 CUDA-core backward kernels' tiles: convchain
+# (N, H, W, Cin, Cout) with one and three input channels, 96 outputs, 8 x 8
+# and 13 x 13 images; RDNet tails (M, C, inter, G) with M off the 128-row
+# tile and widths off the column tiles, two with no width a multiple of 8
+# (the bf16 CUDA-core route)
+RAGGED_CONV = [(2, 8, 8, 1, 96), (2, 13, 13, 3, 96), (2, 13, 13, 1, 96), (2, 8, 8, 3, 96)]
+RAGGED_TAILS = [(4097, 232, 928, 104), (300, 40, 160, 24), (4097, 229, 925, 101), (300, 37, 157, 21)]
+
+
+def check_ragged(device, gen):
+    """Phase 3c: the f32 CUDA-core backward kernels against their plain
+    versions at RAGGED_CONV (prologue on and off) and RAGGED_TAILS (f32, and
+    bf16 where the route is the CUDA cores'), under the unchanged
+    tolerances."""
+    from pssr2_tpu_torch.ops import convchain, rdtail
+
+    print("phase kernels: f32 CUDA-core backward kernels vs plain at ragged shapes: max abs error <= bound")
+    for n, h, w, cin, cout in RAGGED_CONV:
+        x = torch.randn(n, h, w, cin, device=device, generator=gen)
+        weight = torch.randn(cout, cin, 3, 3, device=device, generator=gen) / (3 * cin**0.5)
+        bias = 0.1 * torch.randn(cout, device=device, generator=gen)
+        ab = torch.stack([torch.rand(cin, device=device, generator=gen) + 0.5,
+                          0.3 * torch.randn(cin, device=device, generator=gen)])
+        gy = torch.randn(n, h, w, cout, device=device, generator=gen)
+        gs1, gs2 = (0.01 * torch.randn(cout, device=device, generator=gen) for _ in range(2))
+        for a in (None, ab):
+            with torch.no_grad():
+                y, _, _ = convchain.fused_conv_layer(x, weight, bias, a)
+                args = (x, weight, y, gy, gs1, gs2, a)
+                errs = convchain.bwd_errors(convchain._launch_bwd(*args), convchain.reference_layer_bwd(*args))
+            torch.cuda.synchronize()
+            ok = all(e <= lim for e, _, lim in errs.values())
+            print(f"  convchain_bwd float32 {(n, h, w, cin, cout)} prologue={int(a is not None)}: "
+                  + " ".join(f"{k} {e:.3g} <= {b:.3g}" for k, (e, _, b) in errs.items()) + ("" if ok else "  <-- DISAGREES"))
+            if not ok:
+                raise RuntimeError(f"convchain_bwd disagrees at {(n, h, w, cin, cout)}: {errs}")
+    for m, c, inter, g in RAGGED_TAILS:
+        for dtype in (torch.float32, torch.bfloat16):
+            route = rdtail.route(c, inter, g, dtype)
+            if route != "cuda_core":
+                continue
+            x = torch.randn(m, c, device=device, generator=gen).to(dtype)
+            params = (1.0 + 0.1 * torch.randn(c, device=device, generator=gen),
+                      0.1 * torch.randn(c, device=device, generator=gen),
+                      torch.randn(c, inter, device=device, generator=gen) / c**0.5,
+                      0.1 * torch.randn(inter, device=device, generator=gen),
+                      torch.randn(inter, g, device=device, generator=gen) / inter**0.5,
+                      0.1 * torch.randn(g, device=device, generator=gen))
+            gout = torch.randn(m, g, device=device, generator=gen).to(dtype)
+            with torch.no_grad():
+                errs = rdtail.bwd_errors(rdtail._launch_bwd(x, params, gout, RD_EPS),
+                                         rdtail.reference_tail_bwd(x, *params, gout, eps=RD_EPS))
+            torch.cuda.synchronize()
+            ok = all(e <= lim for e, _, lim in errs.values())
+            print(f"  rdtail bwd {str(dtype)[6:]} {(m, c, inter, g)} {route}: "
+                  + " ".join(f"{k} {e:.3g} <= {b:.3g}" for k, (e, _, b) in errs.items()) + ("" if ok else "  <-- DISAGREES"))
+            if not ok:
+                raise RuntimeError(f"rdtail bwd disagrees at {(m, c, inter, g)} {dtype}: {errs}")
 
 
 def tail_bound_ms(m, c, inter, g, dtype, backward):
@@ -1241,14 +1360,14 @@ def run_train(device, seed, card, root, kind):
                 if delta != per_step or not np.isfinite(losses[-1]):
                     raise RuntimeError(f"step {k}: launches {delta} (want {per_step}), loss {losses[-1]}")
                 k += 1
-        if kind == "SwinIR" or dtype == torch.bfloat16:  # one more step, traced
-            before = _counts()
-            profile_device(lambda: step(model, optimizer, hr_u8, None, generator, LR_RATE, n_valid, False),
-                           f"one {kind} training step, {str(dtype)[6:]}")
-            delta = tuple(a - b for a, b in zip(_counts(), before))
-            if delta != per_step:
-                raise RuntimeError(f"traced step: launches {delta} (want {per_step})")
-            k += 1
+        # one more step, traced
+        before = _counts()
+        profile_device(lambda: step(model, optimizer, hr_u8, None, generator, LR_RATE, n_valid, False),
+                       f"one {kind} training step, {str(dtype)[6:]}")
+        delta = tuple(a - b for a, b in zip(_counts(), before))
+        if delta != per_step:
+            raise RuntimeError(f"traced step: launches {delta} (want {per_step})")
+        k += 1
         # one more step with the metrics: a second SSIM forward
         before = _counts()
         loss, (mse, ssim_val), _ = step(model, optimizer, hr_u8, None, generator, LR_RATE, n_valid, True)
@@ -1998,6 +2117,7 @@ def main():
     bwd = check_bwd(device, gen)
     ssim = check_ssim(device, gen)
     rd = check_rdtail(device, gen)
+    check_ragged(device, gen)
     swin = check_swin(device, gen)
     gh = check_gradhist(device, gen)
     cs = check_chanstats(device, gen)

@@ -2,8 +2,9 @@
 // block-tail kernels (rdtail.cu) share: conversions and rounding to the
 // compute type T (float or bfloat16), GELU and its derivative rounded as
 // ops/blockmath.py rounds them, and one 64 x 64 tile of a weight gradient
-// A^T B summed over a range of rows.  Both kernels' plain versions hold them
-// to these exact operations.
+// A^T B summed over a range of rows (the f32 Swin block's; the RDNet tail's
+// f32 weight gradients run on csrc/f32gemm.cuh).  Both kernels' plain
+// versions hold them to these exact operations.
 
 #pragma once
 
@@ -101,6 +102,19 @@ template <typename T> __device__ __forceinline__ float gelu(float z) {
 }
 template <typename T> __device__ __forceinline__ float dgelu(float z) {
   return std::is_same<T, float>::value ? dgelu_exact(z) : dgelu_fast(z);
+}
+// gelu<T>(z) and dgelu<T>(z), the exact pair sharing one erf: the same
+// operations, so the same values
+template <typename T> __device__ __forceinline__ void gelu_dgelu(float z, float& g, float& dg) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float e1 = __fadd_rn(1.f, erf_f32(__fmul_rn(z, SQRT_HALF)));
+    const float phi = __fmul_rn(expf(__fmul_rn(__fmul_rn(-0.5f, z), z)), INV_SQRT_2PI);
+    g = __fmul_rn(__fmul_rn(0.5f, z), e1);
+    dg = __fadd_rn(__fmul_rn(0.5f, e1), __fmul_rn(z, phi));
+  } else {
+    g = gelu_fast(z);
+    dg = dgelu_fast(z);
+  }
 }
 
 __host__ __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }

@@ -51,41 +51,39 @@
 //   meet there with 16-byte f32 atomicAdd.  The blocks of the first Cin
 //   tile also sum g for dbias.
 //
-// float32 (convchain_bwd: convchain_bwd_dx_kernel, then
-// convchain_bwd_dw_kernel), kept simple first (CUDA cores, no tensor cores,
-// no TMA; the tensor cores have no f32 product).  Both fold g from gy, y
-// and (gs1, gs2) as they load it; neither writes g to memory:
-// - dx is the forward kernel's direct convolution with the roles of the
-//   channels swapped: a block owns 8x8 pixels x 64 input channels, 128
-//   threads hold 8 pixels x 4 channels each, and the cotangent's output
-//   channels stream through shared memory 16 at a time (halo of g, zero
-//   outside the image; weights pre-flipped to (9, Cout, Cin) by the
-//   wrapper).  The epilogue recomputes the prologue for the ReLU mask and
-//   reduces d(a, b) over the block before one atomicAdd per channel.
-// - dW is a reduction over all N*H*W pixels.  A block owns 16 input
-//   channels x 64 output channels x all 9 taps; its 128 threads each hold
-//   one input channel x 8 output channels x 9 taps (72 f32 sums), and it
-//   walks a strided share of the 8x8 pixel tiles (grid.z splits the
-//   pixels), with the prologue'd input halo and the folded g tile in
-//   shared memory.  A thread slides a 3x3 window along a row, so each
-//   pixel costs 3 shared loads of h and 2 float4 loads of g for 72
-//   multiply-adds.  The blocks' partial sums meet in dW and dbias with
-//   atomicAdd, so their order of summation changes from run to run.
+// float32 (convchain_bwd: convchain_f32_dx_kernel, then
+// convchain_f32_dw_kernel), on the CUDA cores in true f32 (the tensor cores
+// have no f32 product; TF32 would break the 1e-4 tolerance), on the
+// register-tiled mainloop of csrc/f32gemm.cuh: a ring of cp.async slots, a
+// 16 x 16 grid of threads, each with a register tile.
+// - dx is an implicit GEMM: M = pixels, two 8 x 8 sub-tiles a block (128
+//   rows), N = Cin (BN 128, 64, 32 or 16: ops/convchain.py:f32_dx_plan),
+//   K = 9 taps x Cout, 8 channels a step.  A step's slot holds the halo of
+//   gy and y for both sub-tiles, folded into g by the thread that copied
+//   each element once it lands, and the weights at the flipped taps (the
+//   layout (9, Cout, Cin) that the autograd forward makes beside its own
+//   and keeps: 16-byte copies); a thread's 8 x TN tile takes each halo row
+//   as a 6-wide window for the three kx.  Its epilogue recomputes the
+//   prologue for the ReLU mask and reduces d(a, b); the blocks of the first
+//   Cin tile write g (f32) for the dW launch.
+// - dW is, for each tap, the GEMM M = Cin, N = Cout, K = pixels: a block
+//   owns 32 Cin x 64 Cout x all 9 taps over a share of the sub-tiles
+//   (grid.z: f32_dw_plan), a thread 2 Cin x 4 Cout x 9 taps (72 sums).  A
+//   step is one sub-tile: its g and its input halo (the prologue applied by
+//   the copying thread) are loaded once for the 9 taps, and a thread slides
+//   a 3 x 3 window along each pixel row, 3 new halo values and one float4
+//   of g a pixel for 72 FMAs.  The block's tile goes through shared memory
+//   into dW's own (Cout, Cin, 3, 3) order, where the partial sums meet by
+//   atomicAdd, and the blocks of the first Cin tile sum g for dbias.  The
+//   atomics make the order of those f32 sums change from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "convchain_tc.cuh"
+#include "f32gemm.cuh"
 
 namespace {
-
-constexpr int TH = 8;        // rows of a pixel tile
-constexpr int TW = 8;        // columns of a pixel tile
-constexpr int TC = 64;       // channels a block owns (dx: Cin; dW: Cout)
-constexpr int KC = 16;       // channels per shared-memory chunk (dx: Cout; dW: Cin)
-constexpr int THREADS = 128;
-constexpr int HALO_H = TH + 2;
-constexpr int HALO_W = TW + 2;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 
@@ -99,293 +97,413 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 // The stat-folded cotangent of one element, as a T tensor holds it:
 // g = gy + T(gs1 + 2*y*gs2), in the order the plain version computes it.
 template <typename T>
-__device__ __forceinline__ float fold(T gy, T y, float gs1, float gs2) {
-  const float t = __fadd_rn(gs1, __fmul_rn(2.f * to_f32(y), gs2));
-  return round_to<T>(__fadd_rn(to_f32(gy), round_to<T>(t)));
+__device__ __forceinline__ float fold(float gy, float y, float gs1, float gs2) {
+  const float t = __fadd_rn(gs1, __fmul_rn(2.f * y, gs2));
+  return round_to<T>(__fadd_rn(gy, round_to<T>(t)));
 }
 
-template <typename T, bool RELU_IN>
-__global__ void __launch_bounds__(THREADS)
-convchain_bwd_dx_kernel(const T* __restrict__ x,       // (N, H, W, Cin)
-                        const T* __restrict__ wt,      // (9, Cout, Cin): [8-tap] flipped
-                        const T* __restrict__ y,       // (N, H, W, Cout)
-                        const T* __restrict__ gy,      // (N, H, W, Cout)
-                        const float* __restrict__ gs,  // (2, Cout)
-                        const float* __restrict__ ab,  // (2, Cin) or null
-                        T* __restrict__ dx,            // (N, H, W, Cin)
-                        float* __restrict__ dab,       // (2, Cin), zeroed by the caller
-                        int H, int W, int Cin, int Cout, int tiles_w) {
-  __shared__ float g_s[KC][HALO_H][HALO_W];
-  __shared__ __align__(16) float w_s[KC][9][TC];
-  __shared__ float red1[TH][TC];
-  __shared__ float red2[TH][TC];
+// ---- float32 on the CUDA cores (csrc/f32gemm.cuh)
 
-  const int tid = threadIdx.x;
-  const int row = tid / (TC / 4);
-  const int cg = tid % (TC / 4);
-  const int n = blockIdx.z;
-  const int h0 = (blockIdx.x / tiles_w) * TH;
-  const int w0 = (blockIdx.x % tiles_w) * TW;
-  const int ci0 = blockIdx.y * TC;
+constexpr int SUB_W = 8;           // an 8 x 8 pixel sub-tile (cctc::TILE)
+constexpr int HALO_W = SUB_W + 2;  // its 10 x 10 halo
+constexpr int HALO_PX = HALO_W * HALO_W;
+constexpr int DX_KC = 8;           // Cout channels of a dx step
+constexpr int DX_STAGES = 2;
+constexpr int DW_CI = 32;          // a dW block's Cin ...
+constexpr int DW_CO = 64;          // ... and Cout, all 9 taps
+constexpr int DW_STAGES = 3;
 
-  const long long img = (long long)n * H * W;
+struct F32Args {
+  const float* x;    // (N, H, W, Cin)
+  const float* wt;   // (9, Cout, Cin): W at the flipped taps (ops/convchain.py:kernel_weight_dx)
+  const float* y;    // (N, H, W, Cout)
+  const float* gy;   // (N, H, W, Cout)
+  const float* gs;   // (2, Cout)
+  const float* ab;   // (2, Cin) or null
+  float* dx;         // (N, H, W, Cin)
+  float* dab;        // (2, Cin), zeroed by the caller
+  float* g;          // (N, H, W, Cout): the folded cotangent, written by dx for dW
+  float* dw;         // (Cout, Cin, 3, 3), zeroed by the caller
+  float* dbias;      // (Cout), zeroed by the caller
+  int H, W, cin, cout, tiles_w, tiles_per_img, n_sub;
+};
 
-  float acc[TW][4];
-#pragma unroll
-  for (int p = 0; p < TW; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
+// dx's ring slot: the folded cotangent's halo of this step's DX_KC
+// channels for both sub-tiles ([k][sub][10][10]; gy lands there and y in
+// the next HALO floats for the fold), then the weights at the flipped taps
+// ([tap][k][BN + PAD], 16-byte rows of Cin)
+template <int BN> struct DxSmem {
+  static constexpr int HALO = DX_KC * 2 * HALO_PX;
+  static constexpr int SB = BN + f32g::PAD;
+  static constexpr int SLOT = 2 * HALO + 9 * DX_KC * SB;
+  static constexpr int BYTES = DX_STAGES * SLOT * 4;
+};
 
-  for (int c0 = 0; c0 < Cout; c0 += KC) {
-    // cotangent halo chunk, folded; zero outside the image and past Cout
-    for (int e = tid; e < KC * HALO_H * HALO_W; e += THREADS) {
-      const int k = e % KC;
-      const int pix = e / KC;
-      const int r = pix / HALO_W;
-      const int c = pix % HALO_W;
-      const int hh = h0 - 1 + r;
-      const int ww = w0 - 1 + c;
-      const int co = c0 + k;
-      float v = 0.f;
-      if (co < Cout && hh >= 0 && hh < H && ww >= 0 && ww < W) {
-        const long long i = (img + (long long)hh * W + ww) * Cout + co;
-        v = fold<T>(gy[i], y[i], gs[co], gs[Cout + co]);
-      }
-      g_s[k][r][c] = v;
-    }
-    for (int e = tid; e < KC * 9 * TC; e += THREADS) {
-      const int c = e % TC;
-      const int rest = e / TC;
-      const int tap = rest % 9;
-      const int k = rest / 9;
-      const int co = c0 + k;
-      const int ci = ci0 + c;
-      float v = 0.f;
-      if (co < Cout && ci < Cin) v = to_f32(wt[((long long)tap * Cout + co) * Cin + ci]);
-      w_s[k][tap][c] = v;
-    }
-    __syncthreads();
+// dx = conv3x3^T(g, W): M = pixels, two 8 x 8 sub-tiles a block (128 rows,
+// one for each run of 4 register rows: a thread's 8 pixels are 4 in a row
+// of each), N = BN input channels, K = 9 taps x Cout walked DX_KC channels
+// a step.  A step's halo is loaded once for its 9 taps: a thread slides a
+// 6-wide window of each sub-tile's halo row (py + ky) across the three kx.
+template <typename T, bool RELU_IN, int BN>
+__global__ void __launch_bounds__(f32g::THREADS, 2) convchain_f32_dx_kernel(const F32Args p) {
+  constexpr int TN = BN / 16;
+  using S = DxSmem<BN>;
+  extern __shared__ __align__(16) float fsmem[];
+  const int tid = threadIdx.x, n0 = blockIdx.y * BN;
+  const bool writes_g = blockIdx.y == 0;  // the first Cin tile writes g for dW
+  const bool wvec = (p.cin & 3) == 0;     // 16-byte weight rows
+  const f32g::Pos t;
+  int n_a, h_a, w_a, n_b, h_b, w_b;
+  const bool ok_a = cctc::sub_origin(2 * blockIdx.x, p.n_sub, p.tiles_per_img, p.tiles_w, n_a, h_a, w_a);
+  const bool ok_b = cctc::sub_origin(2 * blockIdx.x + 1, p.n_sub, p.tiles_per_img, p.tiles_w, n_b, h_b, w_b);
 
-    const int kc = min(KC, Cout - c0);
-    for (int k = 0; k < kc; ++k) {
+  // halo slot e of a step: channel k, sub-tile s, halo pixel q; its element
+  // of gy, y and g at `at` where `ok` (in the image, the sub-tile and Cout)
+  auto slot = [&](int e, int c0, int& d, long long& at, bool& ok, bool& inner) {
+    const int k = e & 7, q = e >> 3, s = q >= HALO_PX, hp = q - s * HALO_PX;
+    const int hy = hp / HALO_W, hx = hp % HALO_W;
+    const int hh = (s ? h_b : h_a) - 1 + hy, ww = (s ? w_b : w_a) - 1 + hx;
+    ok = (s ? ok_b : ok_a) && hh >= 0 && hh < p.H && ww >= 0 && ww < p.W && c0 + k < p.cout;
+    inner = hy >= 1 && hy <= SUB_W && hx >= 1 && hx <= SUB_W;
+    at = ((static_cast<long long>(s ? n_b : n_a) * p.H + hh) * p.W + ww) * p.cout + c0 + k;
+    d = (k * 2 + s) * HALO_PX + hp;
+  };
+  float acc[8][TN];
+  f32g::zero(acc);
+  f32g::ring<DX_STAGES>(
+      fsmem, S::SLOT, (p.cout + DX_KC - 1) / DX_KC,
+      [&](float* sl, int i) {
+        const int c0 = i * DX_KC;
+        for (int e = tid; e < S::HALO; e += f32g::THREADS) {  // 8 channels a lane's run: a 32-byte sector
+          int d;
+          long long at;
+          bool ok, inner;
+          slot(e, c0, d, at, ok, inner);
+          f32g::cp4(sl + d, ok ? p.gy + at : p.gy, ok);
+          f32g::cp4(sl + S::HALO + d, ok ? p.y + at : p.y, ok);
+        }
+        // [tap][k][n] = W[co][ci][8 - tap] = wt[tap][c0 + k][n0 + n], 4 n a copy
+        float* ws = sl + 2 * S::HALO;
+        constexpr int CH = BN / 4;
+        for (int e = tid; e < 9 * DX_KC * CH; e += f32g::THREADS) {
+          const int n = (e % CH) * 4, k = (e / CH) % DX_KC, tap = e / (CH * DX_KC);
+          const bool kin = c0 + k < p.cout;
+          const long long at = (static_cast<long long>(tap) * p.cout + c0 + k) * p.cin + n0 + n;
+          float* d = ws + (tap * DX_KC + k) * S::SB + n;
+          if (wvec && n0 + n + 4 <= p.cin) {
+            f32g::cp16(d, kin ? p.wt + at : p.wt, kin);
+          } else {
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        float gin[HALO_W];
-#pragma unroll
-        for (int j = 0; j < HALO_W; ++j) gin[j] = g_s[k][row + ky][j];
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float4 wv = *reinterpret_cast<const float4*>(&w_s[k][ky * 3 + kx][cg * 4]);
-#pragma unroll
-          for (int p = 0; p < TW; ++p) {
-            const float gv = gin[p + kx];
-            acc[p][0] = fmaf(gv, wv.x, acc[p][0]);
-            acc[p][1] = fmaf(gv, wv.y, acc[p][1]);
-            acc[p][2] = fmaf(gv, wv.z, acc[p][2]);
-            acc[p][3] = fmaf(gv, wv.w, acc[p][3]);
+            for (int j = 0; j < 4; ++j) {
+              const bool ok = kin && n0 + n + j < p.cin;
+              f32g::cp4(d + j, ok ? p.wt + at + j : p.wt, ok);
+            }
           }
         }
+      },
+      [&](float* sl, int i) {  // the fold, on the slots this thread copied
+        const int c0 = i * DX_KC;
+#pragma unroll 1
+        for (int e = tid; e < S::HALO; e += f32g::THREADS) {
+          int d;
+          long long at;
+          bool ok, inner;
+          slot(e, c0, d, at, ok, inner);
+          float v = 0.f;
+          if (ok) {
+            const int co = c0 + (e & 7);
+            v = fold<T>(sl[d], sl[S::HALO + d], p.gs[co], p.gs[p.cout + co]);
+            if (writes_g && inner) p.g[at] = v;
+          }
+          sl[d] = v;
+        }
+      },
+      [&](float* sl, int) {
+        const float* ws = sl + 2 * S::HALO;
+        const int py = t.ty >> 1, px = (t.ty & 1) * 4;
+#pragma unroll 2
+        for (int k = 0; k < DX_KC; ++k) {
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky) {
+            float win[2][6];
+#pragma unroll
+            for (int s = 0; s < 2; ++s)
+#pragma unroll
+              for (int q = 0; q < 6; ++q) win[s][q] = sl[(k * 2 + s) * HALO_PX + (py + ky) * HALO_W + px + q];
+#pragma unroll
+            for (int kx = 0; kx < 3; ++kx) {
+              float a[8], b[TN];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                a[q] = win[0][q + kx];
+                a[4 + q] = win[1][q + kx];
+              }
+              f32g::load_b<TN>(ws + ((ky * 3 + kx) * DX_KC + k) * S::SB, t.tx, b);
+              f32g::outer(acc, a, b);
+            }
+          }
+        }
+      });
+
+  // epilogue: the ReLU mask of the recomputed prologue, dx, and the d(a, b)
+  // sums.  The tile goes to shared memory first (a thread's own slots), so
+  // that few registers are live beside the loads of x; a column's sums over
+  // the thread's rows go to red ([2][16 thread rows][BN]) for the block's
+  // column sums.
+  float* park = fsmem;
+  float* red = fsmem + 8 * TN * f32g::THREADS;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) park[(i * TN + j) * f32g::THREADS + tid] = acc[i][j];
+#pragma unroll 1
+  for (int j = 0; j < TN; ++j) {
+    const int ci = n0 + f32g::col<TN>(t.tx, j);
+    const float a = RELU_IN && ci < p.cin ? p.ab[ci] : 1.f;
+    const float b = RELU_IN && ci < p.cin ? p.ab[p.cin + ci] : 0.f;
+    float part1 = 0.f, part2 = 0.f;
+#pragma unroll 1
+    for (int i = 0; i < 8; ++i) {
+      const int s = i >> 2, local = t.row(i) & 63;
+      const int hh = (s ? h_b : h_a) + local / SUB_W, ww = (s ? w_b : w_a) + local % SUB_W;
+      if (!(s ? ok_b : ok_a) || hh >= p.H || ww >= p.W || ci >= p.cin) continue;
+      const long long at = ((static_cast<long long>(s ? n_b : n_a) * p.H + hh) * p.W + ww) * p.cin + ci;
+      const float v = park[(i * TN + j) * f32g::THREADS + tid];
+      if (RELU_IN) {
+        const float xv = p.x[at];
+        const float z = __fadd_rn(__fmul_rn(xv, a), b);
+        const float dz = z > 0.f ? v : 0.f;
+        part1 = fmaf(dz, xv, part1);
+        part2 += dz;
+        p.dx[at] = round_to<T>(__fmul_rn(dz, a));
+      } else {
+        p.dx[at] = round_to<T>(v);
       }
     }
-    __syncthreads();
-  }
-
-  // epilogue: ReLU mask of the recomputed prologue, dx, and d(a, b) sums
-  const int hh = h0 + row;
-  float part1[4] = {0.f, 0.f, 0.f, 0.f};
-  float part2[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int ci = ci0 + cg * 4 + q;
-    if (ci >= Cin || hh >= H) continue;
-    const float a = RELU_IN ? ab[ci] : 1.f;
-    const float b = RELU_IN ? ab[Cin + ci] : 0.f;
-#pragma unroll
-    for (int p = 0; p < TW; ++p) {
-      const int ww = w0 + p;
-      if (ww >= W) continue;
-      const long long i = (img + (long long)hh * W + ww) * Cin + ci;
-      if (RELU_IN) {
-        const float xv = to_f32(x[i]);
-        const float z = __fadd_rn(__fmul_rn(xv, a), b);
-        const float dz = z > 0.f ? acc[p][q] : 0.f;
-        part1[q] = fmaf(dz, xv, part1[q]);
-        part2[q] += dz;
-        dx[i] = from_f32<T>(__fmul_rn(dz, a));
-      } else {
-        dx[i] = from_f32<T>(acc[p][q]);
-      }
+    if (RELU_IN) {
+      red[t.ty * BN + f32g::col<TN>(t.tx, j)] = part1;
+      red[(16 + t.ty) * BN + f32g::col<TN>(t.tx, j)] = part2;
     }
   }
   if (RELU_IN) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      red1[row][cg * 4 + q] = part1[q];
-      red2[row][cg * 4 + q] = part2[q];
-    }
     __syncthreads();
-    if (tid < TC && ci0 + tid < Cin) {
-      float t1 = 0.f, t2 = 0.f;
+    if (tid < BN && n0 + tid < p.cin) {
+      float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int r = 0; r < TH; ++r) {
-        t1 += red1[r][tid];
-        t2 += red2[r][tid];
+      for (int r = 0; r < 16; ++r) {
+        s1 += red[r * BN + tid];
+        s2 += red[(16 + r) * BN + tid];
       }
-      atomicAdd(&dab[ci0 + tid], t1);
-      atomicAdd(&dab[Cin + ci0 + tid], t2);
+      atomicAdd(p.dab + n0 + tid, s1);
+      atomicAdd(p.dab + p.cin + n0 + tid, s2);
     }
   }
 }
 
+// dW's ring slot: one sub-tile's g (64 pixels x 64 Cout, [pixel][DW_CO +
+// PAD]) and its input halo with the prologue ([pixel][DW_CI + PAD], 16-byte
+// chunks of 4 Cin); then, for the epilogue, the block's tile in dW's own
+// order ([64 Cout][32 Cin x 9 taps + PAD]).
+struct DwSmemF32 {
+  static constexpr int SG = DW_CO + f32g::PAD;
+  static constexpr int G = 64 * SG;
+  static constexpr int SH = DW_CI + f32g::PAD;
+  static constexpr int SLOT = G + HALO_PX * SH;
+  static constexpr int OUT_ROW = DW_CI * 9 + f32g::PAD;
+  static constexpr int RING = DW_STAGES * SLOT > DW_CO * OUT_ROW ? DW_STAGES * SLOT : DW_CO * OUT_ROW;
+  static constexpr int BIAS = f32g::THREADS * 4;  // dbias: each thread's sums of its 4 Cout
+  static constexpr int BYTES = (RING + BIAS) * 4;
+};
+
+// dW[co][ci][tap] = sum over pixels of h[p + tap][ci] g[p][co]: for each tap
+// the GEMM M = Cin, N = Cout, K = pixels.  A block owns 32 Cin x 64 Cout x
+// all 9 taps over its share of the sub-tiles (grid.z splits them); a thread
+// 2 Cin (ty, ty + 16) x 4 Cout x 9 taps.  A step is one 8 x 8 sub-tile,
+// each pixel's halo and g loaded once for the 9 taps: a thread slides a
+// 3 x 3 window of each of its two channels' halos along a pixel row, 3 new
+// values a pixel and one float4 of g, for 72 FMAs.  The partial sums meet
+// in dW's own order by atomicAdd, each Cout's Cin x 9 taps one run.
 template <typename T, bool RELU_IN>
-__global__ void __launch_bounds__(THREADS)
-convchain_bwd_dw_kernel(const T* __restrict__ x,       // (N, H, W, Cin)
-                        const T* __restrict__ y,       // (N, H, W, Cout)
-                        const T* __restrict__ gy,      // (N, H, W, Cout)
-                        const float* __restrict__ gs,  // (2, Cout)
-                        const float* __restrict__ ab,  // (2, Cin) or null
-                        float* __restrict__ dw,        // (9, Cin, Cout), zeroed by the caller
-                        float* __restrict__ dbias,     // (Cout), zeroed by the caller
-                        int H, int W, int Cin, int Cout, int tiles_w, int tiles_per_img,
-                        int n_tiles) {
-  __shared__ float h_s[KC][HALO_H][HALO_W];
-  __shared__ __align__(16) float g_s[TH * TW][TC];
+__global__ void __launch_bounds__(f32g::THREADS, 2) convchain_f32_dw_kernel(const F32Args p) {
+  using S = DwSmemF32;
+  extern __shared__ __align__(16) float fsmem[];
+  const int tid = threadIdx.x, ci0 = blockIdx.x * DW_CI, co0 = blockIdx.y * DW_CO;
+  const int split = blockIdx.z, splits = gridDim.z;
+  const int nsteps = split < p.n_sub ? (p.n_sub - 1 - split) / splits + 1 : 0;
+  const bool vec = (p.cout & 3) == 0;
+  const f32g::Pos t;
+  const bool sums_bias = blockIdx.x == 0;  // the first Cin tile sums g for dbias
+  float* bsum = fsmem + S::RING;
+  if (sums_bias) *reinterpret_cast<float4*>(bsum + 4 * tid) = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  const int tid = threadIdx.x;
-  const int k = tid / (TC / 8);    // 0..KC-1: this thread's input channel in the chunk
-  const int cg = tid % (TC / 8);   // 0..7: group of 8 output channels
-  const int c0 = blockIdx.x * KC;
-  const int co0 = blockIdx.y * TC;
-  const bool sums_bias = blockIdx.x == 0 && k == 0;
-
-  float acc[9][8];
+  const bool xvec = (p.cin & 3) == 0;  // 16-byte chunks of x
+  // input-halo chunk e of a step: Cin ci0 + c4 .. + 3 of halo pixel q; `at`
+  // its first element in x, `n_ok` how many of its channels lie in Cin (0
+  // outside the image)
+  auto hchunk = [&](int e, int n, int h0, int w0, int& q, int& c4, long long& at, int& n_ok) {
+    q = e / (DW_CI / 4);
+    c4 = (e % (DW_CI / 4)) * 4;
+    const int hh = h0 - 1 + q / HALO_W, ww = w0 - 1 + q % HALO_W;
+    const bool in = hh >= 0 && hh < p.H && ww >= 0 && ww < p.W;
+    n_ok = in ? max(0, min(4, p.cin - ci0 - c4)) : 0;
+    at = ((static_cast<long long>(n) * p.H + hh) * p.W + ww) * p.cin + ci0 + c4;
+  };
+  float acc[9][2][4];
 #pragma unroll
-  for (int t = 0; t < 9; ++t)
+  for (int k = 0; k < 9; ++k)
 #pragma unroll
-    for (int q = 0; q < 8; ++q) acc[t][q] = 0.f;
-  float bacc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[k][q][j] = 0.f;
 
-  for (int t = blockIdx.z; t < n_tiles; t += gridDim.z) {
-    const int n = t / tiles_per_img;
-    const int rem = t % tiles_per_img;
-    const int h0 = (rem / tiles_w) * TH;
-    const int w0 = (rem % tiles_w) * TW;
-    const long long img = (long long)n * H * W;
-
-    // input halo with the prologue, zeros outside the image and past Cin
-    for (int e = tid; e < KC * HALO_H * HALO_W; e += THREADS) {
-      const int ci = e % KC;
-      const int pix = e / KC;
-      const int r = pix / HALO_W;
-      const int c = pix % HALO_W;
-      const int hh = h0 - 1 + r;
-      const int ww = w0 - 1 + c;
-      const int cin = c0 + ci;
-      float v = 0.f;
-      if (cin < Cin && hh >= 0 && hh < H && ww >= 0 && ww < W) {
-        v = to_f32(x[(img + (long long)hh * W + ww) * Cin + cin]);
-        if (RELU_IN) {
-          const float z = __fadd_rn(__fmul_rn(v, ab[cin]), ab[Cin + cin]);
-          v = round_to<T>(fmaxf(z, 0.f));
+  f32g::ring<DW_STAGES>(
+      fsmem, S::SLOT, nsteps,
+      [&](float* sl, int i) {
+        int n, h0, w0;
+        cctc::sub_origin(split + i * splits, p.n_sub, p.tiles_per_img, p.tiles_w, n, h0, w0);
+        for (int e = tid; e < 64 * (DW_CO / 4); e += f32g::THREADS) {  // g: 16-byte chunks of a pixel's row
+          const int px = e >> 4, c = (e & 15) * 4;
+          const int hh = h0 + px / SUB_W, ww = w0 + px % SUB_W, co = co0 + c;
+          const bool in = hh < p.H && ww < p.W;
+          const long long at = ((static_cast<long long>(n) * p.H + hh) * p.W + ww) * p.cout + co;
+          float* d = sl + px * S::SG + c;
+          if (vec) {
+            const bool ok = in && co < p.cout;
+            f32g::cp16(d, ok ? p.g + at : p.g, ok);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const bool ok = in && co + j < p.cout;
+              f32g::cp4(d + j, ok ? p.g + at + j : p.g, ok);
+            }
+          }
         }
-      }
-      h_s[ci][r][c] = v;
-    }
-    // folded cotangent tile, zeros outside the image and past Cout
-    for (int e = tid; e < TH * TW * TC; e += THREADS) {
-      const int c = e % TC;
-      const int pix = e / TC;
-      const int hh = h0 + pix / TW;
-      const int ww = w0 + pix % TW;
-      const int co = co0 + c;
-      float v = 0.f;
-      if (co < Cout && hh < H && ww < W) {
-        const long long i = (img + (long long)hh * W + ww) * Cout + co;
-        v = fold<T>(gy[i], y[i], gs[co], gs[Cout + co]);
-      }
-      g_s[pix][c] = v;
-    }
-    __syncthreads();
-
+        for (int e = tid; e < HALO_PX * DW_CI / 4; e += f32g::THREADS) {
+          int q, c4, n_ok;
+          long long at;
+          hchunk(e, n, h0, w0, q, c4, at, n_ok);
+          float* d = sl + S::G + q * S::SH + c4;
+          if (xvec) {
+            f32g::cp16(d, n_ok ? p.x + at : p.x, n_ok > 0);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) f32g::cp4(d + j, j < n_ok ? p.x + at + j : p.x, j < n_ok);
+          }
+        }
+      },
+      [&](float* sl, int i) {  // dbias and the prologue, on the slots this thread copied
+        if (sums_bias) {  // g: this thread's 4 Cout of pixels tid / 16 + 16 q
+          float4 acc4 = *reinterpret_cast<const float4*>(bsum + 4 * tid);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(sl + ((tid >> 4) + 16 * q) * S::SG + (tid & 15) * 4);
+            acc4.x += v.x, acc4.y += v.y, acc4.z += v.z, acc4.w += v.w;
+          }
+          *reinterpret_cast<float4*>(bsum + 4 * tid) = acc4;
+        }
+        if (!RELU_IN) return;
+        int n, h0, w0;
+        cctc::sub_origin(split + i * splits, p.n_sub, p.tiles_per_img, p.tiles_w, n, h0, w0);
 #pragma unroll 1
-    for (int r = 0; r < TH; ++r) {
-      float win[3][3];
+        for (int e = tid; e < HALO_PX * DW_CI / 4; e += f32g::THREADS) {
+          int q, c4, n_ok;
+          long long at;
+          hchunk(e, n, h0, w0, q, c4, at, n_ok);
+          float* d = sl + S::G + q * S::SH + c4;
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        win[ky][0] = h_s[k][r + ky][0];
-        win[ky][1] = h_s[k][r + ky][1];
-      }
-#pragma unroll
-      for (int c = 0; c < TW; ++c) {
-#pragma unroll
-        for (int ky = 0; ky < 3; ++ky) win[ky][2] = h_s[k][r + ky][c + 2];
-        const float4 ga = *reinterpret_cast<const float4*>(&g_s[r * TW + c][cg * 8]);
-        const float4 gb = *reinterpret_cast<const float4*>(&g_s[r * TW + c][cg * 8 + 4]);
-        const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-#pragma unroll
-        for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-          for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-            for (int q = 0; q < 8; ++q) acc[ky * 3 + kx][q] = fmaf(win[ky][kx], gv[q], acc[ky * 3 + kx][q]);
-        if (sums_bias) {
-#pragma unroll
-          for (int q = 0; q < 8; ++q) bacc[q] += gv[q];
+          for (int j = 0; j < 4; ++j) {
+            const int ci = ci0 + c4 + j;
+            if (j < n_ok) d[j] = round_to<T>(fmaxf(__fadd_rn(__fmul_rn(d[j], p.ab[ci]), p.ab[p.cin + ci]), 0.f));
+          }
         }
+      },
+      [&](float* sl, int) {
+        const float* h0 = sl + S::G + t.ty;  // the thread's two channels, ty and ty + 16
+        const float* h1 = h0 + 16;
+#pragma unroll 1
+        for (int r = 0; r < SUB_W; ++r) {
+          float win[2][3][3];
 #pragma unroll
-        for (int ky = 0; ky < 3; ++ky) {
-          win[ky][0] = win[ky][1];
-          win[ky][1] = win[ky][2];
+          for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+            for (int kx = 0; kx < 2; ++kx) {
+              win[0][ky][kx] = h0[((r + ky) * HALO_W + kx) * S::SH];
+              win[1][ky][kx] = h1[((r + ky) * HALO_W + kx) * S::SH];
+            }
+#pragma unroll
+          for (int c = 0; c < SUB_W; ++c) {
+#pragma unroll
+            for (int ky = 0; ky < 3; ++ky) {
+              win[0][ky][2] = h0[((r + ky) * HALO_W + c + 2) * S::SH];
+              win[1][ky][2] = h1[((r + ky) * HALO_W + c + 2) * S::SH];
+            }
+            const float4 gq = *reinterpret_cast<const float4*>(sl + (r * SUB_W + c) * S::SG + t.tx * 4);
+            const float gv[4] = {gq.x, gq.y, gq.z, gq.w};
+#pragma unroll
+            for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+              for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+                for (int q = 0; q < 2; ++q)
+#pragma unroll
+                  for (int j = 0; j < 4; ++j)
+                    acc[ky * 3 + kx][q][j] = fmaf(win[q][ky][kx], gv[j], acc[ky * 3 + kx][q][j]);
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+#pragma unroll
+              for (int ky = 0; ky < 3; ++ky) {
+                win[q][ky][0] = win[q][ky][1];
+                win[q][ky][1] = win[q][ky][2];
+              }
+          }
         }
-      }
-    }
-    __syncthreads();
-  }
+      });
 
-  const int cin = c0 + k;
+  // the block's tile in dW's own order, then each Cout's run added
+  float* out = fsmem;
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int co = co0 + cg * 8 + q;
-    if (co >= Cout) continue;
-    if (cin < Cin) {
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) atomicAdd(&dw[((long long)tap * Cin + cin) * Cout + co], acc[tap][q]);
-    }
-    if (sums_bias) atomicAdd(&dbias[co], bacc[q]);
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int k = 0; k < 9; ++k) out[(t.tx * 4 + j) * S::OUT_ROW + (t.ty + 16 * q) * 9 + k] = acc[k][q][j];
+  __syncthreads();
+  const int run = min(DW_CI, p.cin - ci0) * 9;
+  for (int e = tid; e < DW_CO * run; e += f32g::THREADS) {
+    const int r = e / run, k = e % run;
+    if (co0 + r < p.cout)
+      atomicAdd(p.dw + (static_cast<long long>(co0 + r) * p.cin + ci0) * 9 + k, out[r * S::OUT_ROW + k]);
+  }
+  if (sums_bias && tid < DW_CO && co0 + tid < p.cout) {  // Cout tid: bsum[4 (16 u + tid / 4) + tid % 4]
+    float b = 0.f;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) b += bsum[4 * (16 * u + tid / 4) + tid % 4];
+    atomicAdd(p.dbias + co0 + tid, b);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* wt, const void* y, const void* gy, const void* gs,
-            const void* ab, void* dx, void* dw, void* dbias, void* dab, int n, int h, int w,
-            int cin, int cout, int relu_in, int splits, cudaStream_t stream) {
-  const int tiles_w = (w + TW - 1) / TW;
-  const int tiles_h = (h + TH - 1) / TH;
-  const dim3 block(THREADS);
-  const dim3 grid_dx(tiles_w * tiles_h, (cin + TC - 1) / TC, n);
-  const dim3 grid_dw((cin + KC - 1) / KC, (cout + TC - 1) / TC, splits);
-  const T* xt = static_cast<const T*>(x);
-  const T* yt = static_cast<const T*>(y);
-  const T* gyt = static_cast<const T*>(gy);
-  const float* gsf = static_cast<const float*>(gs);
-  const float* abf = static_cast<const float*>(ab);
-  if (relu_in) {
-    convchain_bwd_dx_kernel<T, true><<<grid_dx, block, 0, stream>>>(
-        xt, static_cast<const T*>(wt), yt, gyt, gsf, abf, static_cast<T*>(dx),
-        static_cast<float*>(dab), h, w, cin, cout, tiles_w);
-    if (cudaError_t err = cudaGetLastError()) return err;
-    convchain_bwd_dw_kernel<T, true><<<grid_dw, block, 0, stream>>>(
-        xt, yt, gyt, gsf, abf, static_cast<float*>(dw), static_cast<float*>(dbias), h, w, cin,
-        cout, tiles_w, tiles_w * tiles_h, n * tiles_w * tiles_h);
-  } else {
-    convchain_bwd_dx_kernel<T, false><<<grid_dx, block, 0, stream>>>(
-        xt, static_cast<const T*>(wt), yt, gyt, gsf, nullptr, static_cast<T*>(dx), nullptr, h,
-        w, cin, cout, tiles_w);
-    if (cudaError_t err = cudaGetLastError()) return err;
-    convchain_bwd_dw_kernel<T, false><<<grid_dw, block, 0, stream>>>(
-        xt, yt, gyt, gsf, nullptr, static_cast<float*>(dw), static_cast<float*>(dbias), h, w,
-        cin, cout, tiles_w, tiles_w * tiles_h, n * tiles_w * tiles_h);
-  }
+template <bool RELU_IN, int BN> cudaError_t launch_f32_dx(const F32Args& p, cudaStream_t s) {
+  static int raised = 0;
+  constexpr int bytes = DxSmem<BN>::BYTES;
+  if (int err = f32g::opt_in(convchain_f32_dx_kernel<float, RELU_IN, BN>, bytes, raised))
+    return static_cast<cudaError_t>(err);
+  const dim3 grid((p.n_sub + 1) / 2, (p.cin + BN - 1) / BN);
+  convchain_f32_dx_kernel<float, RELU_IN, BN><<<grid, f32g::THREADS, bytes, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool RELU_IN> cudaError_t launch_f32(const F32Args& p, int dx_bn, int splits, cudaStream_t s) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dx_bn == 128) err = launch_f32_dx<RELU_IN, 128>(p, s);
+  if (dx_bn == 64) err = launch_f32_dx<RELU_IN, 64>(p, s);
+  if (dx_bn == 32) err = launch_f32_dx<RELU_IN, 32>(p, s);
+  if (dx_bn == 16) err = launch_f32_dx<RELU_IN, 16>(p, s);
+  if (err != cudaSuccess) return err;
+  static int raised = 0;
+  if (int e = f32g::opt_in(convchain_f32_dw_kernel<float, RELU_IN>, DwSmemF32::BYTES, raised))
+    return static_cast<cudaError_t>(e);
+  const dim3 grid((p.cin + DW_CI - 1) / DW_CI, (p.cout + DW_CO - 1) / DW_CO, splits);
+  convchain_f32_dw_kernel<float, RELU_IN><<<grid, f32g::THREADS, DwSmemF32::BYTES, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -608,21 +726,31 @@ cudaError_t launch_tc_dw(const DwArgs& p, int relu_in, int splits, cudaStream_t 
 
 }  // namespace
 
-// The float32 route (bfloat16 takes convchain_bwd_tc).  Launches both
-// kernels on `stream` (dx and d(a, b), then dW and dbias) without
-// synchronising, and returns the first nonzero cudaGetLastError() code
-// after a launch (0 on success).  dw, dbias and, with the prologue, dab
-// must be zeroed before the call.  `splits` is the number of blocks that
-// share the pixel reduction of each dW tile.
-extern "C" int convchain_bwd(const void* x, const void* wt, const void* y, const void* gy,
-                             const void* gs, const void* ab, void* dx, void* dw, void* dbias,
-                             void* dab, int n, int h, int w, int cin, int cout, int relu_in,
-                             int splits, void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || n > 65535 || splits <= 0 ||
-      splits > 65535 || (cin + TC - 1) / TC > 65535 || (cout + TC - 1) / TC > 65535)
+// The float32 route (bfloat16 takes convchain_bwd_tc), two launches on
+// `stream`: dx and d(a, b) (BN = dx_bn, 128, 64, 32 or 16, input channels
+// a block: ops/convchain.py:f32_dx_plan), writing the folded g to `g`
+// ((N, H, W, Cout) f32); then dW and dbias (32 x 64 x 9-tap blocks, the
+// sub-tiles split `splits` ways: f32_dw_plan) into dw laid out (Cout, Cin,
+// 3, 3).  wk is the dx weight layout (9, Cout, Cin), the taps flipped
+// (ops/convchain.py:kernel_weight_dx); gs the f32
+// (2, Cout) cotangents of the sums.  dw, dbias and, with the prologue, dab
+// must be zeroed before the call.  Returns the first nonzero
+// cudaGetLastError() code after a launch (0 on success).
+extern "C" int convchain_bwd(const void* x, const void* wk, const void* y, const void* gy, const void* gs,
+                             const void* ab, void* dx, void* dw, void* dbias, void* dab, void* g, int n, int h, int w,
+                             int cin, int cout, int relu_in, int dx_bn, int splits, void* stream) {
+  const long long tiles_w = (w + cctc::TILE - 1) / cctc::TILE;
+  const long long tiles_img = tiles_w * ((h + cctc::TILE - 1) / cctc::TILE);
+  if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || n * tiles_img > (1LL << 30) || splits <= 0 ||
+      splits > 65535 || (cin + 15) / 16 > 65535 || (cout + DW_CO - 1) / DW_CO > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<float>(x, wt, y, gy, gs, ab, dx, dw, dbias, dab, n, h, w, cin, cout, relu_in,
-                                        splits, static_cast<cudaStream_t>(stream)));
+  const F32Args p{static_cast<const float*>(x), static_cast<const float*>(wk), static_cast<const float*>(y),
+                  static_cast<const float*>(gy), static_cast<const float*>(gs), static_cast<const float*>(ab),
+                  static_cast<float*>(dx), static_cast<float*>(dab), static_cast<float*>(g), static_cast<float*>(dw),
+                  static_cast<float*>(dbias), h, w, cin, cout, static_cast<int>(tiles_w), static_cast<int>(tiles_img),
+                  static_cast<int>(n * tiles_img)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(relu_in ? launch_f32<true>(p, dx_bn, splits, s) : launch_f32<false>(p, dx_bn, splits, s));
 }
 
 // The bfloat16 route on the tensor cores, two launches on `stream`: dx and

@@ -762,7 +762,7 @@ __global__ void __launch_bounds__(128) rdtail_tc_dw_kernel(const DwArgs p) {
 // The LayerNorm backward of LN_ROWS rows a block, a warp a row: dx, and
 // dgamma, dbeta summed over the block's rows (a lane keeps its channels'
 // sums in registers, the warps meet in shared memory), then atomicAdd.
-// The arithmetic is rdtail.cu's rdtail_bwd_rows_kernel's.
+// The arithmetic is rdtail.cu's rdtail_f32_ln_bwd_kernel's.
 __global__ void __launch_bounds__(LN_THREADS) rdtail_ln_bwd_kernel(const BwdArgs p) {
   __shared__ float sdg[MAX_C], sdb[MAX_C];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;

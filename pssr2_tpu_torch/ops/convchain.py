@@ -12,7 +12,10 @@ two launches: dx and d(a, b), then dW and dbias), built by
 ``ops/cuda_build.py``.  Each has two routes, picked from the dtype before
 the launch: bfloat16 runs an implicit GEMM on the tensor cores (wgmma;
 ``csrc/convchain_tc.cuh``, tiled by :func:`tc_plan` and
-:func:`tc_dw_plan`), float32 a direct convolution on the CUDA cores.
+:func:`tc_dw_plan`); float32 runs the forward as a direct convolution on
+the CUDA cores and the backward on the register-tiled f32 mainloop of
+``csrc/f32gemm.cuh`` (dx an implicit GEMM, dW nine per-tap GEMMs that share
+their loads), tiled by :func:`f32_dx_plan` and :func:`f32_dw_plan`.
 
 :func:`fused_conv_layer` is a ``torch.autograd.Function``: for a CUDA
 tensor its forward and backward launch those kernels; for a CPU tensor
@@ -30,9 +33,11 @@ import torch.nn.functional as F
 from . import cuda_build
 
 # Launches of the CUDA kernels in this process (the plain versions do not
-# count): the forward adds 1 per call, the backward 2 (its two launches).
+# count): the forward adds 1 per call, the backward BWD_LAUNCHES (dx and
+# d(a, b), then dW and dbias) on either route.
 launches = 0
 bwd_launches = 0
+BWD_LAUNCHES = 2
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -57,9 +62,26 @@ BWD_TOLERANCE = {
     torch.float32: {"dx": 1e-4, "dw": 1e-4, "dbias": 1e-4, "dab": 1e-4},
     torch.bfloat16: {"dx": 1 / 64, "dw": 1e-4, "dbias": 1e-4, "dab": 1e-4},
 }
-# Blocks that the f32 dW kernel aims to run (132 SMs x 8): the pixel
-# reduction is split over grid.z until the grid holds about this many.
-_DW_TARGET_BLOCKS = 1056
+# The f32 backward kernels (csrc/convchain_bwd.cu on csrc/f32gemm.cuh):
+# 256 threads a block.  dx: two 8x8 sub-tiles (128 pixels) x BN input
+# channels a block, Cout F32_DX_KC channels a step through a ring of
+# F32_DX_STAGES slots; BN 16 for Cin up to 16, else of 128, 64 and 32 whose
+# grid holds F32_FILL_BLOCKS (the card's 132 SMs, 10% short allowed) the
+# one of least padded Cin over F32_DX_EFF (a thread's 8 x 8 register tile
+# loads least per FMA), 32 where none does.  dW: F32_DW_CI input x
+# F32_DW_CO output channels x 9 taps a block, one sub-tile a step through
+# F32_DW_STAGES slots, the sub-tiles split over grid.z until the grid
+# holds F32_DW_TARGET_BLOCKS (two waves of two blocks an SM).
+F32_THREADS = 256
+F32_PAD = 4
+F32_DX_KC = 8
+F32_DX_STAGES = 2
+F32_DW_CI = 32
+F32_DW_CO = 64
+F32_DW_STAGES = 3
+F32_FILL_BLOCKS = 119
+F32_DX_EFF = {128: 1.0, 64: 0.85, 32: 0.5}
+F32_DW_TARGET_BLOCKS = 528
 # The bf16 (tensor-core) kernels: a sub-tile is TILE x TILE output pixels
 # (64 rows of M, one warpgroup's); K comes in chunks of K_CHUNK channels, to
 # which the weight layouts are zero-padded.  The forward and dx grids take
@@ -181,7 +203,7 @@ def _fwd_fn():
 @functools.cache
 def _bwd_fn():
     fn = cuda_build.load("convchain_bwd").convchain_bwd
-    fn.argtypes = [_VOID_P] * 10 + [_INT] * 7 + [_VOID_P]
+    fn.argtypes = [_VOID_P] * 11 + [_INT] * 8 + [_VOID_P]
     fn.restype = _INT
     return fn
 
@@ -232,13 +254,12 @@ def kernel_weight_dx(weight):
     return weight.float().flip(2, 3).permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
 
 
-def _dw_splits(n, h, w, cin, cout):
-    """Blocks that share each f32 dW tile's pixel reduction (grid.z of the
-    f32 dW kernel): enough for about ``_DW_TARGET_BLOCKS`` blocks, at most
-    one 8x8 pixel tile each."""
-    tiles = n * -(-h // 8) * -(-w // 8)
-    blocks = -(-cin // 16) * -(-cout // 64)
-    return max(1, min(tiles, 65535, -(-_DW_TARGET_BLOCKS // blocks)))
+def bwd_weight(weight, dtype):
+    """The weight layout the backward's dx kernel reads: :func:`kernel_weight`
+    for bfloat16 (the forward's own), :func:`kernel_weight_dx` for float32.
+    The autograd forward makes it beside the forward's layout and keeps it
+    for the backward."""
+    return kernel_weight(weight, dtype) if dtype == torch.bfloat16 else kernel_weight_dx(weight)
 
 
 def sub_tiles(n, h, w):
@@ -254,6 +275,48 @@ def sub_tile_origin(t, n, h, w):
     per_img = tiles_w * -(-h // TILE)
     img, r = divmod(t, per_img)
     return img, (r // tiles_w) * TILE, (r % tiles_w) * TILE
+
+
+def f32_dx_smem(bn):
+    """Shared memory of the f32 dx block (DxSmem::BYTES): a slot holds the
+    gy and y halos of both sub-tiles for F32_DX_KC channels and the 9 taps'
+    weights, F32_DX_KC x (bn + F32_PAD) floats each."""
+    halo = F32_DX_KC * 2 * 100
+    return 4 * F32_DX_STAGES * (2 * halo + 9 * F32_DX_KC * (bn + F32_PAD))
+
+
+def f32_dw_smem():
+    """Shared memory of the f32 dW block (DwSmemF32::BYTES): the ring of
+    (g of 64 pixels, the input halo of F32_DW_CI channels), or the block's
+    tile in dW's order, if larger; then 4 dbias sums a thread."""
+    slot = 64 * (F32_DW_CO + F32_PAD) + 100 * (F32_DW_CI + F32_PAD)
+    return 4 * (max(F32_DW_STAGES * slot, F32_DW_CO * (F32_DW_CI * 9 + F32_PAD)) + 4 * F32_THREADS)
+
+
+@functools.cache
+def f32_dx_plan(n, h, w, cin):
+    """Tiling of the f32 dx kernel: ``(bn, (grid_x, grid_y))``.  Block (bx,
+    by) computes input channels [by * bn, by * bn + bn) of sub-tiles 2 bx and
+    2 bx + 1."""
+    m_tiles = -(-sub_tiles(n, h, w) // 2)
+    if cin <= 16:
+        bn = 16
+    else:
+        fill = [bn for bn in (128, 64, 32) if m_tiles * -(-cin // bn) >= F32_FILL_BLOCKS]
+        bn = min(fill, key=lambda bn: -(-cin // bn) * bn / F32_DX_EFF[bn]) if fill else 32
+    return bn, (m_tiles, -(-cin // bn))
+
+
+@functools.cache
+def f32_dw_plan(n, h, w, cin, cout):
+    """Grid of the f32 dW kernel: ``(grid_x, grid_y, splits)``.  Block (bx,
+    by, bz) computes all 9 taps of dW for Cin [F32_DW_CI bx, + F32_DW_CI)
+    and Cout [F32_DW_CO by, + F32_DW_CO), summed over sub-tiles bz, bz +
+    splits, ...; splits grows until the grid holds F32_DW_TARGET_BLOCKS,
+    at most one a sub-tile."""
+    grid = (-(-cin // F32_DW_CI), -(-cout // F32_DW_CO))
+    splits = -(-F32_DW_TARGET_BLOCKS // (grid[0] * grid[1]))
+    return (*grid, max(1, min(sub_tiles(n, h, w), 65535, splits)))
 
 
 @functools.cache
@@ -338,8 +401,8 @@ def _launch_fwd(x, weight, bias, ab, wk=None):
 
 
 def _launch_bwd(x, weight, y, gy, gs1, gs2, ab, wk=None):
-    """The two backward launches; ``wk``: the bf16 forward's
-    :func:`kernel_weight` of ``weight`` where the caller holds it."""
+    """The two backward launches; ``wk``: :func:`bwd_weight` of ``weight``
+    where the caller holds it."""
     global bwd_launches
     n, h, w, cin = x.shape
     cout = weight.shape[0]
@@ -352,9 +415,9 @@ def _launch_bwd(x, weight, y, gy, gs1, gs2, ab, wk=None):
     dab = sums[9 * cin * cout + cout:].view(2, cin) if ab is not None else None
     outs = (abk.data_ptr() if abk is not None else None, dx.data_ptr(), sums.data_ptr(), dbias.data_ptr(),
             dab.data_ptr() if dab is not None else None)
+    wk = bwd_weight(weight, x.dtype) if wk is None else wk
     with torch.cuda.device(x.device):
         if x.dtype == torch.bfloat16:
-            wk = kernel_weight(weight, x.dtype) if wk is None else wk
             g = torch.empty((n, h, w, _padded(cout)), dtype=x.dtype, device=x.device)  # the folded cotangent
             dx_wg, dx_bn, _ = tc_plan(n, h, w, cin)
             gs1, gs2 = gs1.float().contiguous(), gs2.float().contiguous()
@@ -362,43 +425,45 @@ def _launch_bwd(x, weight, y, gy, gs1, gs2, ab, wk=None):
                                gs2.data_ptr(), *outs, g.data_ptr(), n, h, w, cin, cout, wk.shape[2], g.shape[3],
                                int(abk is not None), dx_wg, dx_bn, tc_dw_plan(n, h, w, cin, cout)[2],
                                _stream(x.device))
-            dw = sums[:9 * cin * cout].view(cout, cin, 3, 3)  # the kernel's own order
         else:
-            wt = kernel_weight_dx(weight)
+            g = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)  # the folded cotangent
             gs = torch.stack([gs1, gs2]).float().contiguous()
-            err = _bwd_fn()(x.data_ptr(), wt.data_ptr(), y.data_ptr(), gy.data_ptr(), gs.data_ptr(), *outs,
-                            n, h, w, cin, cout, int(abk is not None), _dw_splits(n, h, w, cin, cout),
-                            _stream(x.device))
-            # (9, Cin, Cout) [ky*3+kx][ci][co] -> (Cout, Cin, 3, 3)
-            dw = sums[:9 * cin * cout].view(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
+            err = _bwd_fn()(x.data_ptr(), wk.data_ptr(), y.data_ptr(), gy.data_ptr(), gs.data_ptr(), *outs,
+                            g.data_ptr(), n, h, w, cin, cout, int(abk is not None), f32_dx_plan(n, h, w, cin)[0],
+                            f32_dw_plan(n, h, w, cin, cout)[2], _stream(x.device))
+        dw = sums[:9 * cin * cout].view(cout, cin, 3, 3)  # the kernels' own order
     if err != 0:
         raise RuntimeError(f"convchain_bwd launch failed with CUDA error {err}")
-    bwd_launches += 2
+    bwd_launches += BWD_LAUNCHES
     return dx, dw, dbias, dab
 
 
 class _FusedLayer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias, ab):
-        wk = None
+    def forward(ctx, x, weight, bias, ab, need_bwd):
+        wkb = None
         if x.device.type == "cpu":
             y, s1, s2 = reference_layer(x, weight, bias, ab)
         else:
             _check(x, weight, bias, ab)
-            if x.dtype == torch.bfloat16:  # kept for the backward, which reads the same layout
-                wk = kernel_weight(weight, x.dtype)
+            wk = kernel_weight(weight, x.dtype)
+            # the backward's layout, kept for it: bf16 reads the forward's own
+            if x.dtype == torch.bfloat16:
+                wkb = wk
+            elif need_bwd:
+                wkb = kernel_weight_dx(weight)
             y, s1, s2 = _launch_fwd(x, weight, bias, ab, wk)
-        ctx.save_for_backward(x, weight, ab, y, wk)
+        ctx.save_for_backward(x, weight, ab, y, wkb)
         return y, s1, s2
 
     @staticmethod
     def backward(ctx, gy, gs1, gs2):
-        x, weight, ab, y, wk = ctx.saved_tensors
+        x, weight, ab, y, wkb = ctx.saved_tensors
         if x.device.type == "cpu":
             dx, dw, dbias, dab = reference_layer_bwd(x, weight, y, gy, gs1, gs2, ab)
         else:
-            dx, dw, dbias, dab = _launch_bwd(x, weight, y, gy, gs1, gs2, ab, wk)
-        return dx, dw.to(weight.dtype), dbias.to(weight.dtype), dab
+            dx, dw, dbias, dab = _launch_bwd(x, weight, y, gy, gs1, gs2, ab, wkb)
+        return dx, dw.to(weight.dtype), dbias.to(weight.dtype), dab, None
 
 
 def fused_conv_layer(x, weight, bias, ab=None):
@@ -407,4 +472,5 @@ def fused_conv_layer(x, weight, bias, ab=None):
     ``ab=None`` skips the prologue (chain entry).  A caller that wants the
     model's train-mode semantics passes ``bias.detach()``
     (pssr2_tpu/models/blocks.py:SGBiasConv)."""
-    return _FusedLayer.apply(x, weight, bias, ab)
+    need_bwd = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, weight, bias, ab))
+    return _FusedLayer.apply(x, weight, bias, ab, need_bwd)

@@ -20,8 +20,11 @@ routes that :func:`route` picks up front from the dtype and the shape:
   2 M inter (C + G) forward and 2 M inter (3C + 2G) backward, against
   989 TFLOP/s.
 - float32, and every other bfloat16 shape, run on the CUDA cores in f32:
-  the forward is one launch, the backward two (the per-row gradient chain,
-  then the weight gradients' reduction over all rows).
+  the forward is one launch; the backward is four on the register-tiled
+  f32 mainloop of ``csrc/f32gemm.cuh`` (the rows' LayerNorm, the rows'
+  products z1 and dz with the GELU between them, one launch of the three
+  products dh, dW1 and dW2, the LayerNorm backward), tiled by
+  :func:`f32_plan`.  The bound is the same operations against 67 TFLOP/s.
 
 :func:`fused_rd_tail` is a ``torch.autograd.Function``: for a CUDA tensor
 its forward and backward launch those kernels; for a CPU tensor they take
@@ -58,7 +61,7 @@ launches = 0
 bwd_launches = 0
 tc_launches = 0
 tc_bwd_launches = 0
-BWD_LAUNCHES = {"tc": 4, "cuda_core": 2}
+BWD_LAUNCHES = {"tc": 4, "cuda_core": 4}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VOID_P, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -232,6 +235,92 @@ def tail_plan(m, c, inter, g):
     return {"fwd": _best(fwd), "rows": _best(rows), "dh_bn": dh_bn, "dw_rows": dw_rows}
 
 
+# The CUDA-core backward's tiling (csrc/f32gemm.cuh, csrc/rdtail.cu): blocks
+# of F32_THREADS threads own F32_BM rows x BN columns (128 or 64) of a
+# product, K comes F32_BK at a time through a ring of F32_ROWS_STAGES
+# (the rows launch, beside its park of GELU'(z1)) or F32_JOBS_STAGES
+# slots; the row kernels take F32_LN_ROWS rows a block.  A product takes
+# the BN of least padded columns over F32_TILE_EFF (a thread's 8 x 4 tile
+# loads more per FMA than its 8 x 8).  The GEMM launch splits each
+# product's K over blocks until the launch holds about F32_TARGET_BLOCKS
+# (four waves of two blocks an SM), no share under F32_MIN_K.
+F32_THREADS = 256
+F32_BM = 128
+F32_BK = 16
+F32_PAD = 4
+F32_ROWS_STAGES = 2
+F32_JOBS_STAGES = 3
+F32_LN_ROWS = 32
+F32_TILE_EFF = {128: 1.0, 64: 0.85}
+F32_TARGET_BLOCKS = 8 * SMS
+F32_MIN_K = 256
+
+
+def f32_rows_smem(bn):
+    """Shared memory of the CUDA-core rows block (RowsSmem::BYTES): its ring
+    of A and B tiles and the park of GELU'(z1), 8 x bn/16 floats a thread."""
+    slot = F32_BK * (F32_BM + F32_PAD + bn + F32_PAD)
+    return 4 * (F32_ROWS_STAGES * slot + 8 * (bn // 16) * F32_THREADS)
+
+
+def f32_jobs_smem():
+    """Shared memory of the GEMM launch's block (f32g::gemm_smem_bytes at
+    BN 128, which holds the 64-wide tiles too)."""
+    return 4 * F32_JOBS_STAGES * F32_BK * (F32_BM + F32_PAD + 128 + F32_PAD)
+
+
+def _round_up(v, k):
+    return _cdiv(v, k) * k
+
+
+def _f32_bn(n):
+    """The column tile of a product n wide: least padded work over the
+    tile's efficiency."""
+    return min((128, 64), key=lambda bn: _round_up(n, bn) / F32_TILE_EFF[bn])
+
+
+@functools.cache
+def f32_plan(m, c, inter, g):
+    """Tiling of the CUDA-core backward at (M, C, inter, G), a dict:
+
+    - ``rows``: (bn, grid): the rows launch, 128 rows x bn columns of I a
+      block: :func:`_f32_bn`, or 64 where 128 leaves the card's SMS short;
+    - ``jobs``: [(name, m, n, k, bn, kps, splits, tiles_m, tiles_n)]: the
+      GEMM launch's products dh (M x C, K = inter), dw1 (C x inter, K = M)
+      and dw2 (inter x G, K = M), in launch order, each in 128 x bn tiles,
+      each tile's K in ``splits`` shares of ``kps`` (a multiple of
+      F32_BK): shares of about the launch's work over F32_TARGET_BLOCKS, at
+      least F32_MIN_K;
+    - ``ln_blocks``: blocks of the two row kernels;
+    - ``launches``: the backward's launches in order (BWD_LAUNCHES)."""
+    rows_bn = _f32_bn(inter)
+    if _cdiv(m, F32_BM) * _cdiv(inter, rows_bn) < SMS:
+        rows_bn = 64
+    dims = [(name, mm, nn, k, _f32_bn(nn)) for name, mm, nn, k in
+            (("dh", m, c, inter), ("dw1", c, inter, m), ("dw2", inter, g, m))]
+    share = max(F32_MIN_K, sum(_cdiv(mm, F32_BM) * _cdiv(nn, bn) * k for _, mm, nn, k, bn in dims)
+                / F32_TARGET_BLOCKS)
+    jobs = []
+    for name, mm, nn, k, bn in dims:
+        kps = _round_up(_cdiv(k, max(1, round(k / share))), F32_BK)
+        jobs.append((name, mm, nn, k, bn, kps, _cdiv(k, kps), _cdiv(mm, F32_BM), _cdiv(nn, bn)))
+    return {"rows": (rows_bn, (_cdiv(m, F32_BM), _cdiv(inter, rows_bn))), "jobs": jobs,
+            "ln_blocks": _cdiv(m, F32_LN_ROWS), "launches": ("ln", "rows", "jobs", "ln_bwd")}
+
+
+def f32_jobs_blocks(plan):
+    """The GEMM launch's blocks in order, as gemm_jobs_kernel reads them:
+    [(name, row range, column range, K range)] (the atomics meet the K
+    shares of one tile)."""
+    out = []
+    for name, m, n, k, bn, kps, splits, tiles_m, tiles_n in plan["jobs"]:
+        for b in range(tiles_m * tiles_n * splits):
+            split, tile = b // (tiles_m * tiles_n), b % (tiles_m * tiles_n)
+            m0, n0 = (tile // tiles_n) * F32_BM, (tile % tiles_n) * bn
+            out.append((name, (m0, min(m, m0 + F32_BM)), (n0, min(n, n0 + bn)), (split * kps, min(k, split * kps + kps))))
+    return out
+
+
 @functools.cache
 def route(c, inter, g, dtype):
     """The route of a CUDA tensor's launches: ``"tc"`` (tensor cores) for
@@ -314,7 +403,7 @@ def _fwd_fn():
 @functools.cache
 def _bwd_fn():
     fn = cuda_build.load("rdtail").rdtail_bwd
-    fn.argtypes = [_VOID_P] * 18 + [_INT] * 6 + [_FLOAT, _VOID_P]
+    fn.argtypes = [_VOID_P] * 20 + [_INT] * 12 + [_FLOAT, _VOID_P]
     fn.restype = _INT
     return fn
 
@@ -389,18 +478,6 @@ def _launch_fwd(x, params, eps):
     return out
 
 
-# Blocks that the weight-gradient launch aims to run (132 SMs x 8): the
-# row reduction is split over grid.y until the grid holds about this many.
-_DW_TARGET_BLOCKS = 1056
-
-
-def _dw_splits(m, c, inter, g):
-    """Row splits of the weight-gradient launch: enough for about
-    ``_DW_TARGET_BLOCKS`` blocks of 64x64 tiles, at least 64 rows each."""
-    tiles = -(-c // 64) * -(-inter // 64) + -(-inter // 64) * -(-g // 64)
-    return max(1, min(-(-m // 64), 65535, -(-_DW_TARGET_BLOCKS // tiles)))
-
-
 def _launch_bwd(x, params, gout, eps):
     """(dx, dlns, dlnb, dw1, db1, dw2, db2) by the backward launches of the
     route (BWD_LAUNCHES); the parameter gradients in f32."""
@@ -412,16 +489,14 @@ def _launch_bwd(x, params, gout, eps):
     gout = _aligned(gout.to(x.dtype))
     dt = {"dtype": x.dtype, "device": x.device}
     f32 = {"dtype": torch.float32, "device": x.device}
-    # scratch: the normalised rows, GELU(z1) and dz1 (and, on the tensor
-    # cores, dh) in x's dtype
-    h, zg, dz1 = torch.empty((m, c), **dt), torch.empty((m, inter), **dt), torch.empty((m, inter), **dt)
-    dx = torch.empty_like(x)
     dlns, dlnb, db1, db2 = (torch.zeros(n, **f32) for n in (c, c, inter, g))
     dw1, dw2 = torch.zeros((c, inter), **f32), torch.zeros((inter, g), **f32)
-    grads = (dx, dlns, dlnb, dw1, db1, dw2, db2)
     tc = route(c, inter, g, x.dtype) == "tc"
     with torch.cuda.device(x.device):
         if tc:
+            # scratch: the normalised rows, GELU(z1), dz1 and dh in bf16
+            h, zg, dz1 = torch.empty((m, c), **dt), torch.empty((m, inter), **dt), torch.empty((m, inter), **dt)
+            dx = torch.empty_like(x)
             plan = tail_plan(m, c, inter, g)
             rows_wg, rows_ni, rows_splits, _ = plan["rows"]
             dh = torch.empty((m, c), **dt)
@@ -431,15 +506,25 @@ def _launch_bwd(x, params, gout, eps):
                 plan["dw_rows"], eps, _stream(x.device),
             )
         else:
-            # the CUDA-core backward also reads fc1 as (inter, C) and fc2 as (G, inter)
-            w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
-            ptrs = (x, lns, lnb, w1, w1t, b1, w2t, gout, h, zg, dz1, dx, dlns, dlnb, dw1, db1, dw2, db2)
+            # every operand in f32 (a bf16 one converted exactly); scratch:
+            # the normalised rows, GELU(z1), dz1 (and transposed), the row
+            # statistics and dh (summed by atomics, rounded to the dtype
+            # where it is read)
+            xf, lnsf, lnbf, w1f, b1f, w2f, gf = (_aligned(t.float()) for t in (x, lns, lnb, w1, b1, w2, gout))
+            h, dxf, stats, dh = (torch.empty((m, c), **f32), torch.empty((m, c), **f32), torch.empty(2 * m, **f32),
+                                 torch.zeros((m, c), **f32))
+            zg, dz1, dz1t = (torch.empty(shape, **f32) for shape in ((m, inter), (m, inter), (inter, m)))
+            plan = f32_plan(m, c, inter, g)
+            bns, kps = zip(*((job[4], job[5]) for job in plan["jobs"]))
+            ptrs = (xf, lnsf, lnbf, w1f, b1f, w2f, gf, h, zg, dz1, dz1t, dh, stats, dxf, dlns, dlnb, dw1, db1, dw2, db2)
             err = _bwd_fn()(
-                *(t.data_ptr() for t in ptrs),
-                m, c, inter, g, _DTYPE_CODE[x.dtype], _dw_splits(m, c, inter, g), eps, _stream(x.device),
+                *(t.data_ptr() for t in ptrs), m, c, inter, g, _DTYPE_CODE[x.dtype], plan["rows"][0], *bns, *kps,
+                eps, _stream(x.device),
             )
+            dx = dxf.to(x.dtype)
     if err != 0:
         raise RuntimeError(f"rdtail_{'tc_' if tc else ''}bwd launch failed with CUDA error {err}")
+    grads = (dx, dlns, dlnb, dw1, db1, dw2, db2)
     n = BWD_LAUNCHES["tc" if tc else "cuda_core"]
     bwd_launches += n
     tc_bwd_launches += n if tc else 0

@@ -128,9 +128,12 @@ def test_convchain_autograd_goes_through_kernels(device):
 # multiple of the 64-channel K chunk (as 728 and 1000 are), Cout leaving a
 # partial N tile, W and H off the 8x8 sub-tile, an odd Cout (single-element
 # stores), the 8x8 image at batch 16 (the small-grid tiling), and a real
-# RDResUNet width at batch 16
+# RDResUNet width at batch 16; then the f32 kernels' narrow tiles: Cin 1
+# and 3 (dx's 16-channel tile, dW's 32-channel tile mostly empty), Cout 96
+# (one and a half 64-channel dW tiles), 8 x 8 and 13 x 13 images (a ragged
+# second sub-tile of a dx block)
 EDGE_SHAPES = [(2, 40, 192, 9, 20), (2, 200, 72, 8, 12), (2, 24, 33, 11, 8), (16, 64, 128, 8, 8),
-               (16, 448, 256, 32, 32)]
+               (16, 448, 256, 32, 32), (2, 1, 96, 8, 8), (2, 3, 96, 13, 13), (2, 1, 96, 13, 13), (2, 3, 96, 8, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -371,17 +374,23 @@ def test_ssim_largest_window_matches_plain(device):
     _close(yk.grad, yr.grad, "g")
 
 
+# Ragged shapes of the CUDA-core backward's tiles: M off its 128-row tile,
+# C, inter and G off its 128- and 64-column tiles (multiples of 8, so bf16
+# takes the tensor cores unless the route is forced)
+RD_RAGGED = [(4097, 232, 928, 104), (300, 40, 160, 24)]
 # (M, C, inter, G) of the RDNet block tail: tests/test_rdtail.py's shape,
 # ragged sizes in every dimension, stage 0's first block, stage 6's last
 # (the widest C and G), and the largest C and G the kernels take (past the
 # tensor-core route's TC_MAX_C); then C 264 (no multiple of 16) with G 104
 # (no multiple of 64), a ragged M whose I is split over 5 blocks, stage 2's
 # first block (I split 3 ways) and stage 6's first at batch 16 (I split 8
-# ways over a cluster).  In bf16 every shape of multiples of 8 up to
-# TC_MAX_C takes the tensor cores, the others the CUDA cores.
+# ways over a cluster), the ragged shapes above, and two with no size a
+# multiple of 8.  In bf16 every shape of multiples of 8 up to TC_MAX_C takes
+# the tensor cores, the others the CUDA cores.
 RD_SHAPES = [(256, 48, 192, 24), (100, 37, 75, 13), (2048, 128, 512, 64), (1024, 816, 3264, 224),
              (64, rdtail.MAX_C, 160, rdtail.MAX_G), (512, 264, 1056, 104), (300, 160, 640, 104),
-             (4096, 232, 928, 128), (1024, 368, 1472, 224)]
+             (4096, 232, 928, 128), (1024, 368, 1472, 224), *RD_RAGGED,
+             (4097, 229, 925, 101), (300, 37, 157, 21)]
 
 
 def _rd_inputs(device, dtype, m, c, inter, g, seed=0):
@@ -416,6 +425,30 @@ def test_rdtail_fwd_bwd_match_plain(device, shape, dtype):
         ref_grads = rdtail.reference_tail_bwd(x, *params, gout, eps=1e-6)
     torch.cuda.synchronize()
     assert out.shape == (shape[0], shape[3]) and out.dtype == dtype
+    err, _, bound = rdtail.errors(out, ref)
+    assert err <= bound, f"out: max abs error {err} > {bound}"
+    for name, (err, _, bound) in rdtail.bwd_errors(grads, ref_grads).items():
+        assert err <= bound, f"{name}: max abs error {err} > {bound}"
+
+
+@pytest.mark.parametrize("shape", RD_RAGGED, ids=lambda s: "x".join(map(str, s)))
+def test_rdtail_cuda_core_route_matches_plain(device, shape, monkeypatch):
+    """bf16 on the CUDA-core route (forced: these shapes would take the
+    tensor cores) at the ragged shapes, forward and backward against the
+    plain versions within the unchanged tolerances, with its launch
+    counts."""
+    monkeypatch.setattr(rdtail, "route", lambda *args: "cuda_core")
+    x, params, gout = _rd_inputs(device, torch.bfloat16, *shape)
+    with torch.no_grad():
+        before = (rdtail.launches, rdtail.bwd_launches, rdtail.tc_launches, rdtail.tc_bwd_launches)
+        out = rdtail._launch_fwd(x, params, 1e-6)
+        grads = rdtail._launch_bwd(x, params, gout, 1e-6)
+        assert (rdtail.launches, rdtail.bwd_launches, rdtail.tc_launches, rdtail.tc_bwd_launches) == (
+            before[0] + 1, before[1] + rdtail.BWD_LAUNCHES["cuda_core"], before[2], before[3])
+        ref = rdtail.reference_tail(x, *params, eps=1e-6)
+        ref_grads = rdtail.reference_tail_bwd(x, *params, gout, eps=1e-6)
+    torch.cuda.synchronize()
+    assert grads[0].dtype == torch.bfloat16 and all(gr.dtype == torch.float32 for gr in grads[1:])
     err, _, bound = rdtail.errors(out, ref)
     assert err <= bound, f"out: max abs error {err} > {bound}"
     for name, (err, _, bound) in rdtail.bwd_errors(grads, ref_grads).items():
