@@ -13,9 +13,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    count beside its registers, shared memory and local bytes, failing if
    cuobjdump is missing, a tensor-core kernel (a name with ``_tc_``) has no
    HGMMA, a tensor-core Swin-block kernel uses local memory, or an f32
-   CUDA-core backward kernel on ``csrc/f32gemm.cuh`` (``_f32_`` or
-   ``gemm_jobs`` in its name) has no FFMA, any HGMMA or HMMA, or local
-   memory;
+   CUDA-core kernel (``_f32_`` or ``gemm_jobs`` in its name: the convchain
+   and rdtail backwards and the rdtail forward on ``csrc/f32gemm.cuh``, and
+   every launch of the Swin block's CUDA-core backward) has no FFMA, any
+   HGMMA or HMMA, or local memory;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, with times (CUDA events), its bound
    and a library yardstick: the convchain forward and backward at every
@@ -30,13 +31,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
    block tail forward and
    backward at the 21 dense blocks' shapes of the full-width RDResUNet x4
    at batch 16, in f32 and bf16 (every bf16 one on the tensor-core route,
-   each shape's route and TFLOP/s printed); both f32 CUDA-core backward
-   kernels also at ragged shapes (``RAGGED_CONV``, ``RAGGED_TAILS``); the
-   whole Swin block forward
-   (eval and with DropPath keep-scales) and backward at the default SwinIR's blocks
-   at batch 16 ((16, 128, 128, 96), unshifted and shifted), in f32 (CUDA
-   cores) and bf16 (tensor cores; route, plan and TFLOP/s printed, and the
-   tensor-core launches counted); the window attention at those windows (4,096 x 64 x 288) and at
+   each shape's route and TFLOP/s printed; a torch.profiler trace of one
+   f32 forward must show the port's kernels alone); the f32 CUDA-core
+   backward kernels and the rdtail forward also at ragged shapes
+   (``RAGGED_CONV``, ``RAGGED_TAILS``); the whole Swin block forward
+   (eval and with DropPath keep-scales) and backward (DropPath and eval) at
+   the default SwinIR's blocks at batch 16 ((16, 128, 128, 96), unshifted
+   and shifted), in f32 (CUDA cores; a profiler trace of one backward must
+   show the port's kernels alone) and bf16 (tensor cores; route, plan and
+   TFLOP/s printed, and the tensor-core launches counted), and the CUDA-core
+   backward at ragged blocks (``RAGGED_SWIN``, f32 and bf16, both shifts,
+   eval and DropPath); the window attention at those windows (4,096 x 64 x 288) and at
    the SwinIR-L widths (C 240, 8 heads), masked and unmasked; the soft
    histogram forward and backward at the learned crappifier's (16, 16384)
    x 512 and at a ragged value count; the BatchNorm dual sums at one
@@ -257,8 +262,9 @@ def _kernel_label(mangled):
 
 
 def _f32_core(name):
-    """Whether a kernel is one of the f32 CUDA-core backward kernels on
-    csrc/f32gemm.cuh."""
+    """Whether a kernel is one of the f32 CUDA-core kernels: on
+    csrc/f32gemm.cuh, or the Swin block backward's attention and
+    LayerNorm launches."""
     return "_f32_" in name or "gemm_jobs" in name
 
 
@@ -268,7 +274,7 @@ def check_sass(builds):
     memory (static) and local (spill) bytes (``cuobjdump -sass`` and
     ``-res-usage``).  Fails if cuobjdump is missing, a library has no
     tensor-core kernel, a tensor-core kernel has no HGMMA, a tensor-core
-    Swin-block kernel uses local memory, or an f32 CUDA-core backward kernel
+    Swin-block kernel uses local memory, or an f32 CUDA-core kernel
     (:func:`_f32_core`) has no FFMA, a tensor-core instruction of any kind
     (no TF32 crept in) or local memory."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -313,15 +319,22 @@ def check_sass(builds):
 
 
 # Kernel-name fragments of the device-time groups that profile_device sums
-KERNEL_GROUPS = (("swinblock fwd", ("swin_tc_fwd", "swin_fwd")), ("swinblock bwd rows", ("swin_tc_rows", "swin_bwd_rows")),
-                 ("swinblock bwd dW and bias map", ("swin_tc_dw", "swin_reduce")), ("winattn", ("swin_winattn",)),
+KERNEL_GROUPS = (("swinblock fwd", ("swin_tc_fwd", "swin_fwd")), ("swinblock bwd rows (tensor cores)", ("swin_tc_rows",)),
+                 ("swinblock bwd dW (tensor cores)", ("swin_tc_dw",)),
+                 ("swinblock f32 bwd token products", ("swin_f32_tok",)),
+                 ("swinblock f32 bwd MLP rows", ("swin_f32_mlp",)),
+                 ("swinblock f32 bwd attention fwd", ("swin_f32_attn_fwd",)),
+                 ("swinblock f32 bwd attention bwd", ("swin_f32_attn_bwd",)),
+                 ("swinblock f32 bwd LayerNorms", ("swin_f32_ln",)), ("winattn", ("swin_winattn",)),
                  ("ssimfused", ("ssim_",)), ("convchain fwd", ("convchain_tc_fwd", "convchain_fwd")),
                  ("convchain bwd dx", ("convchain_tc_dx", "convchain_f32_dx")),
                  ("convchain bwd dW", ("convchain_tc_dw", "convchain_f32_dw")),
-                 ("rdtail fwd", ("rdtail_tc_fwd", "rdtail_fwd")),
+                 ("rdtail fwd (tensor cores)", ("rdtail_tc_fwd",)), ("rdtail f32 fwd fc1", ("rdtail_f32_fc1",)),
+                 ("rdtail f32 fwd fc2", ("rdtail_f32_fc2",)),
                  ("rdtail bwd rows", ("rdtail_tc_rows", "rdtail_f32_rows")),
-                 ("rdtail bwd GEMMs (dh, dW)", ("rdtail_tc_dh", "rdtail_tc_dw", "gemm_jobs")),
-                 ("rdtail LayerNorms (f32 rows, bwd)", ("rdtail_ln_bwd", "rdtail_f32_ln")),
+                 ("rdtail bwd GEMMs (tensor cores: dh, dW)", ("rdtail_tc_dh", "rdtail_tc_dw")),
+                 ("f32 GEMM launch (rdtail dh, dW; swinblock dW)", ("gemm_jobs",)),
+                 ("rdtail LayerNorms (f32 fwd and bwd rows, bwd)", ("rdtail_ln_bwd", "rdtail_f32_ln")),
                  ("chanstats", ("dual_sums",)),
                  ("cuDNN / cuBLAS", ("cudnn", "conv", "gemm", "xmma", "cutlass", "sm90", "sm80", "fft", "winograd",
                                      "flip_filter", "complex", "region_transform", "wgrad", "dgrad", "fprop")))
@@ -385,6 +398,37 @@ def device_split_ms(fn, groups, reps=5):
             if label is not None:
                 out[label] += evt.self_device_time_total / 1e3 / reps
     return out if seen else None
+
+
+# Kernel-name fragments of the port's own kernels, and of PyTorch's fill and
+# copy kernels (a wrapper's torch.zeros and dtype conversions)
+PORT_KERNELS = ("swin_", "rdtail_", "convchain_", "gemm_jobs", "ssim_", "dual_sums", "gradhist", "q8_")
+GLUE_KERNELS = ("fillfunctor", "copy_kernel", "direct_copy")
+
+
+def check_port_only(fn, label):
+    """One call of ``fn`` under torch.profiler: fails unless every device
+    kernel is one of the port's (PORT_KERNELS) or PyTorch's fill and copy
+    kernels (GLUE_KERNELS): no cuBLAS, cuDNN or SDPA kernel.  Prints the
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {evt.key for evt in prof.key_averages()
+             if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0}
+    if not names:
+        print(f"  trace {label}: the profiler recorded no device time (not checked)")
+        return
+    other = sorted(n for n in names if not any(k in n.lower() for k in PORT_KERNELS + GLUE_KERNELS))
+    print(f"  trace {label}: {len(names)} kernels, none from a library" if not other else
+          f"  trace {label}: LIBRARY KERNELS {other}")
+    print("    " + "; ".join(sorted(n[:70] for n in names)))
+    if other:
+        raise RuntimeError(f"{label} ran kernels that are not the port's: {other}")
 
 
 def bound(nbytes, ops, dtype):
@@ -592,13 +636,17 @@ def check_bwd(device, gen):
 # (the bf16 CUDA-core route)
 RAGGED_CONV = [(2, 8, 8, 1, 96), (2, 13, 13, 3, 96), (2, 13, 13, 1, 96), (2, 8, 8, 3, 96)]
 RAGGED_TAILS = [(4097, 232, 928, 104), (300, 40, 160, 24), (4097, 229, 925, 101), (300, 37, 157, 21)]
+# Swin blocks (B, H, W, C, heads, ws, hidden) of the CUDA-core backward, off
+# the tensor-core route in bf16 too: M off the 128-row tiles, C and hidden
+# off 16, heads of 12, 10 and 30 channels, windows of 8 x 8, 5 x 5, 6 x 6
+RAGGED_SWIN = [(3, 40, 40, 72, 6, 8, 150), (2, 20, 20, 40, 4, 5, 100), (1, 24, 24, 120, 4, 6, 200)]
 
 
 def check_ragged(device, gen):
     """Phase 3c: the f32 CUDA-core backward kernels against their plain
     versions at RAGGED_CONV (prologue on and off) and RAGGED_TAILS (f32, and
-    bf16 where the route is the CUDA cores'), under the unchanged
-    tolerances."""
+    bf16 where the route is the CUDA cores'; the rdtail forward there too),
+    under the unchanged tolerances."""
     from pssr2_tpu_torch.ops import convchain, rdtail
 
     print("phase kernels: f32 CUDA-core backward kernels vs plain at ragged shapes: max abs error <= bound")
@@ -635,9 +683,14 @@ def check_ragged(device, gen):
                       0.1 * torch.randn(g, device=device, generator=gen))
             gout = torch.randn(m, g, device=device, generator=gen).to(dtype)
             with torch.no_grad():
+                err_f = rdtail.errors(rdtail._launch_fwd(x, params, RD_EPS), rdtail.reference_tail(x, *params, eps=RD_EPS))
                 errs = rdtail.bwd_errors(rdtail._launch_bwd(x, params, gout, RD_EPS),
                                          rdtail.reference_tail_bwd(x, *params, gout, eps=RD_EPS))
             torch.cuda.synchronize()
+            print(f"  rdtail fwd {str(dtype)[6:]} {(m, c, inter, g)} {route}: out {err_f[0]:.3g} <= {err_f[2]:.3g}"
+                  + ("" if err_f[0] <= err_f[2] else "  <-- DISAGREES"))
+            if not err_f[0] <= err_f[2]:
+                raise RuntimeError(f"rdtail fwd disagrees at {(m, c, inter, g)} {dtype}: {err_f}")
             ok = all(e <= lim for e, _, lim in errs.values())
             print(f"  rdtail bwd {str(dtype)[6:]} {(m, c, inter, g)} {route}: "
                   + " ".join(f"{k} {e:.3g} <= {b:.3g}" for k, (e, _, b) in errs.items()) + ("" if ok else "  <-- DISAGREES"))
@@ -673,14 +726,16 @@ def check_rdtail(device, gen):
     from pssr2_tpu_torch.ops import rdtail
 
     print(
-        f"phase kernels: rdtail forward (1 launch) and backward (tensor cores {rdtail.BWD_LAUNCHES['tc']} launches, "
+        f"phase kernels: rdtail forward (tensor cores {rdtail.FWD_LAUNCHES['tc']} launch, CUDA cores "
+        f"{rdtail.FWD_LAUNCHES['cuda_core']}) and backward (tensor cores {rdtail.BWD_LAUNCHES['tc']} launches, "
         f"CUDA cores {rdtail.BWD_LAUNCHES['cuda_core']}) vs plain at the dense blocks' shapes (batch {BATCH}): "
         "route, max abs error (relative) <= bound | ms of kernel, plain, library; bound; kernel TFLOP/s"
     )
-    totals = {}
+    totals, tails = {}, rd_shapes()[1]
+    first = tails[0]
     for dtype in (torch.float32, torch.bfloat16):
         tot = {"fwd": _new_totals(), "bwd": _new_totals()}
-        for m, c, inter, g in rd_shapes()[1]:
+        for m, c, inter, g in tails:
             route = rdtail.route(c, inter, g, dtype)
             if route != ("tc" if dtype == torch.bfloat16 else "cuda_core"):
                 raise RuntimeError(f"rdtail {dtype} at {(m, c, inter, g)} takes the {route} route")
@@ -702,6 +757,8 @@ def check_rdtail(device, gen):
                 return F.linear(F.gelu(F.linear(h, pl[2], pl[3])), pl[4], pl[5])
 
             with torch.no_grad():
+                if route == "cuda_core" and (m, c, inter, g) == first:
+                    check_port_only(lambda: rdtail._launch_fwd(x, params, RD_EPS), f"rdtail f32 forward {(m, c, inter, g)}")
                 counts = (rdtail.tc_launches, rdtail.tc_bwd_launches)
                 got = rdtail._launch_fwd(x, params, RD_EPS)
                 ref = rdtail.reference_tail(x, *params, eps=RD_EPS)
@@ -808,17 +865,19 @@ def swin_library(x, lp, heads, ws, shift, attn_mask):
 
 def check_swin(device, gen):
     """Phase 3e: the whole Swin block (row 10) forward, without and with
-    DropPath keep-scales, and its two backward launches against
-    reference_block and reference_block_bwd at the default SwinIR's blocks
-    at batch 16, unshifted and shifted, in f32 and bf16 (each dtype's route
-    printed and its tensor-core launches counted: bf16 runs on the tensor
-    cores, f32 on the CUDA cores), with times, TFLOP/s, bounds and the
-    library chain (and its autograd backward); then the window
-    attention (row 11) at those windows and at the SwinIR-L widths, masked
-    and unmasked, against its plain version and SDPA.  Returns per-dtype
-    totals: the block over one SwinIR() forward or backward (8 unshifted
-    and 8 shifted blocks), the window attention over one forward of the
-    SwinIR-L-width model (2 + 2 blocks)."""
+    DropPath keep-scales, and its backward launches (with the keep-scales,
+    and in eval) against reference_block and reference_block_bwd at the
+    default SwinIR's blocks at batch 16, unshifted and shifted, in f32 and
+    bf16 (each dtype's route printed and its tensor-core launches counted:
+    bf16 runs on the tensor cores, f32 on the CUDA cores, whose backward
+    trace must hold the port's kernels alone), with times, TFLOP/s, bounds
+    and the library chain (and its autograd backward); the CUDA-core
+    backward at RAGGED_SWIN; then the window attention (row 11) at those
+    windows and at the SwinIR-L widths, masked and unmasked, against its
+    plain version and SDPA.  Returns per-dtype totals: the block over one
+    SwinIR() forward or backward (8 unshifted and 8 shifted blocks, the
+    backward with keep-scales as training runs it), the window attention
+    over one forward of the SwinIR-L-width model (2 + 2 blocks)."""
     from pssr2_tpu_torch.ops import swinblock, winattn
 
     c, heads, ws, hidden = SWIN_C, SWIN_HEADS, SWIN_WS, SWIN_HIDDEN
@@ -858,12 +917,20 @@ def check_swin(device, gen):
         for shift in (0, ws // 2):
             mask = winattn._mask_tensor((LR_RES, LR_RES, ws, shift) if shift else None, device)
             attn_mask = _swin_library_mask(params[12], mask, dtype)
-            for kind, sc in (("fwd", None), ("fwd+scales", scales), ("bwd", scales)):
+            for kind, sc in (("fwd", None), ("fwd+scales", scales), ("bwd", scales), ("bwd eval", None)):
                 args = (x, params, heads, ws, shift, SWIN_EPS, sc)
                 kw = dict(heads=heads, ws=ws, shift=shift, eps=SWIN_EPS, scales=sc)
                 with torch.no_grad():
                     counts = (swinblock.tc_launches, swinblock.tc_bwd_launches)
-                    if kind == "bwd":
+                    if kind == "bwd eval":
+                        got = swinblock._launch_bwd(x, params, gout, heads, ws, shift, SWIN_EPS, sc)
+                        ref = swinblock.reference_block_bwd(x, params, gout, **kw)
+                        torch.cuda.synchronize()
+                        errs = swinblock.bwd_errors(got, ref)
+                        del got, ref
+                        k_ms = cuda_ms(lambda: swinblock._launch_bwd(x, params, gout, heads, ws, shift, SWIN_EPS, sc))
+                        p_ms = l_ms = float("nan")
+                    elif kind == "bwd":
                         got = swinblock._launch_bwd(x, params, gout, heads, ws, shift, SWIN_EPS, sc)
                         moved = (swinblock.tc_launches - counts[0], swinblock.tc_bwd_launches - counts[1])
                         if moved != (0, swinblock.BWD_LAUNCHES["tc"] if tc else 0):
@@ -890,13 +957,18 @@ def check_swin(device, gen):
                     if shift:
                         profile_device(lambda: swinblock._launch_bwd(x, params, gout, heads, ws, shift, SWIN_EPS, sc),
                                        f"swinblock backward, {str(dtype)[6:]}, shifted block")
+                        if not tc:
+                            with torch.no_grad():
+                                check_port_only(
+                                    lambda: swinblock._launch_bwd(x, params, gout, heads, ws, shift, SWIN_EPS, sc),
+                                    "swinblock f32 backward, shifted block")
                     xl = x.detach().requires_grad_()
                     pl = [p.detach().requires_grad_() for p in lib_p]
                     out = swin_library(xl, pl, heads, ws, shift, attn_mask)
                     l_ms = cuda_ms(lambda: torch.autograd.grad(out, [xl, *pl], gout, retain_graph=True), reps=3)
                     del out
                 ok = all(e <= lim for e, _, lim in errs.values())
-                b_ms, b_by, ops = swin_bound_ms(*shape, heads, ws, hidden, dtype, kind == "bwd")
+                b_ms, b_by, ops = swin_bound_ms(*shape, heads, ws, hidden, dtype, kind.startswith("bwd"))
                 print(
                     f"  {str(dtype)[6:]:8s} {route:9s} {kind:10s} shift {shift}: "
                     + " ".join(f"{k} {e:.3g} (rel {r:.2g}) <= {b:.3g}" for k, (e, r, b) in errs.items())
@@ -905,10 +977,41 @@ def check_swin(device, gen):
                 )
                 if not ok:
                     raise RuntimeError(f"swinblock {kind} disagrees with its plain version (shift {shift}): {errs}")
-                if kind != "fwd+scales":
+                if kind in ("fwd", "bwd"):
                     _add(tot[kind], SWIN_BLOCKS // 2, k_ms, p_ms, l_ms, b_ms, b_by, ops,
                          max(e for e, _, _ in errs.values()))
         del x, gout
+
+        # the CUDA-core backward at ragged blocks
+        for rb, rh, rw, rc, rheads, rws, rhid in RAGGED_SWIN:
+            if swinblock.route(rc, rhid, rheads, rws, dtype) != "cuda_core":
+                raise RuntimeError(f"ragged Swin block {(rc, rhid, rheads, rws)} {dtype} is not on the CUDA cores")
+            rn = rws * rws
+            rx = torch.randn(rb, rh, rw, rc, device=device, generator=gen).to(dtype)
+            rg = torch.randn(rb, rh, rw, rc, device=device, generator=gen).to(dtype)
+            rp = (1.0 + mk(rc), mk(rc), mk(rc, 3 * rc, sc=rc**-0.5), mk(3 * rc), mk(rc, rc, sc=rc**-0.5), mk(rc),
+                  1.0 + mk(rc), mk(rc), mk(rc, rhid, sc=rc**-0.5), mk(rhid), mk(rhid, rc, sc=rhid**-0.5), mk(rc),
+                  mk(rheads, rn, rn, sc=0.5))
+            rkeep = (torch.rand(rb, device=device, generator=gen) < 0.5).float() / 0.5
+            for shift in (0, rws // 2):
+                for sc in (None, (rkeep, rkeep.flip(0))):
+                    with torch.no_grad():
+                        got = swinblock._launch_bwd(rx, rp, rg, rheads, rws, shift, SWIN_EPS, sc)
+                        ref = swinblock.reference_block_bwd(rx, rp, rg, heads=rheads, ws=rws, shift=shift,
+                                                            eps=SWIN_EPS, scales=sc)
+                        torch.cuda.synchronize()
+                        errs = swinblock.bwd_errors(got, ref)
+                        del got, ref
+                    ok = all(e <= lim for e, _, lim in errs.values())
+                    # the three largest errors against their bounds (a zero gradient has a zero bound)
+                    worst = sorted(errs.items(), key=lambda kv: -(kv[1][0] / kv[1][2] if kv[1][2] else kv[1][0] * 1e30))
+                    print(f"  {str(dtype)[6:]:8s} cuda_core bwd ragged {(rb, rh, rw, rc, rheads, rws, rhid)} shift "
+                          f"{shift} {'droppath' if sc else 'eval'}: worst "
+                          + " ".join(f"{k} {e:.3g} <= {b:.3g}" for k, (e, _, b) in worst[:3])
+                          + ("" if ok else "  <-- DISAGREES"))
+                    if not ok:
+                        raise RuntimeError(f"swinblock bwd disagrees at ragged {(rc, rhid, rheads, rws)} shift {shift}: "
+                                           f"{errs}")
 
         # the window attention: the default SwinIR's windows, then the SwinIR-L widths (its main path)
         for wc, wheads, count in ((c, heads, 0), (SWINL["embed_dim"], SWINL["num_heads"][0], sum(SWINL["depths"]) // 2)):
@@ -1255,10 +1358,13 @@ def _reset_counts():
 def _per_step(train=True, metrics=False, kind="ResUNet", dtype=torch.bfloat16):
     """Launches of one step of the full-width model in ``dtype`` with the
     MS-SSIM loss: its convchain forwards (ResUNet 36, RDResUNet 16) and 2
-    backward launches a layer; RDResUNet's 21 rdtail forwards and the
-    backward launches of their route each (bf16: all on the tensor cores,
-    4; f32: 2); SwinIR's 16 swinblock forwards and 2 backward launches
-    each, or the SwinIR-L widths' 4 winattn forwards (served only); the
+    backward launches a layer; RDResUNet's 21 rdtail tails, each with the
+    forward and backward launches of their route (bf16: all on the tensor
+    cores, 1 and 4; f32: the CUDA cores, 3 and 4, rdtail.FWD_LAUNCHES and
+    BWD_LAUNCHES); SwinIR's 16 swinblock forwards and the backward launches
+    of their route each (bf16: 2 on the tensor cores; f32: 13,
+    swinblock.BWD_LAUNCHES), or the SwinIR-L widths' 4 winattn forwards
+    (served only); the
     loss's level 0, three pool levels and last level, forward (1 launch
     each) and backward (2 each); the metrics add a single-scale SSIM
     forward.  A training step of ResUNet or RDResUNet adds the chanstats
@@ -1270,8 +1376,11 @@ def _per_step(train=True, metrics=False, kind="ResUNet", dtype=torch.bfloat16):
         n["convchain_fwd"] = sum(e + p for *_, e, p in layer_shapes())
         blocks = 2 * len(HIDDEN) - 1
     elif kind == "RDResUNet":
+        from pssr2_tpu_torch.ops.rdtail import FWD_LAUNCHES
+
         convs, tails = rd_shapes()
-        n["convchain_fwd"], n["rdtail_fwd"] = sum(e + p for *_, e, p in convs), len(tails)
+        n["convchain_fwd"] = sum(e + p for *_, e, p in convs)
+        n["rdtail_fwd"] = len(tails) * FWD_LAUNCHES["tc" if dtype == torch.bfloat16 else "cuda_core"]
         n["rdtail_tc_fwd"] = len(tails) if dtype == torch.bfloat16 else 0
         blocks = _rd_decoder_blocks()
     elif kind == "SwinIR":
@@ -1284,9 +1393,10 @@ def _per_step(train=True, metrics=False, kind="ResUNet", dtype=torch.bfloat16):
         from pssr2_tpu_torch.ops import swinblock
         from pssr2_tpu_torch.ops.rdtail import BWD_LAUNCHES
 
+        tails = len(rd_shapes()[1]) if kind == "RDResUNet" else 0
         per_tail = BWD_LAUNCHES["tc" if dtype == torch.bfloat16 else "cuda_core"]
         n.update(convchain_bwd=2 * n["convchain_fwd"], ssim_bwd=2, ssim_pool_bwd=6, ssim_l0_bwd=2,
-                 rdtail_bwd=per_tail * n["rdtail_fwd"], rdtail_tc_bwd=BWD_LAUNCHES["tc"] * n["rdtail_tc_fwd"],
+                 rdtail_bwd=per_tail * tails, rdtail_tc_bwd=BWD_LAUNCHES["tc"] * n["rdtail_tc_fwd"],
                  swinblock_bwd=swinblock.BWD_LAUNCHES[_swin_route(dtype)] * n["swinblock_fwd"],
                  swinblock_tc_bwd=swinblock.BWD_LAUNCHES["tc"] * n["swinblock_tc_fwd"],
                  chanstats=0 if blocks is None else 2 + blocks)
@@ -1818,8 +1928,11 @@ def run_q8_serving(device, seed, card, root, tmp, kind):
         per_fwd = dict.fromkeys(COUNTERS, 0)
         per_fwd["q8conv"] = sum(_int8_convs(kind).values())
         if kind == "RDResUNet":
-            per_fwd["rdtail_fwd"] = len(rd_shapes()[1])
-            per_fwd["rdtail_tc_fwd"] = per_fwd["rdtail_fwd"] if dtype == torch.bfloat16 else 0
+            from pssr2_tpu_torch.ops.rdtail import FWD_LAUNCHES
+
+            tails = len(rd_shapes()[1])
+            per_fwd["rdtail_fwd"] = tails * FWD_LAUNCHES["tc" if dtype == torch.bfloat16 else "cuda_core"]
+            per_fwd["rdtail_tc_fwd"] = tails if dtype == torch.bfloat16 else 0
         want = tuple(-(-TILES // BATCH) * per_fwd[c] for c in COUNTERS)
         model = _model(state, dtype, device, kind, train=False)
         start = time.perf_counter()

@@ -1,10 +1,9 @@
 // Device code that the whole-Swin-block kernels (swinblock.cu) and the RDNet
 // block-tail kernels (rdtail.cu) share: conversions and rounding to the
 // compute type T (float or bfloat16), GELU and its derivative rounded as
-// ops/blockmath.py rounds them, and one 64 x 64 tile of a weight gradient
-// A^T B summed over a range of rows (the f32 Swin block's; the RDNet tail's
-// f32 weight gradients run on csrc/f32gemm.cuh).  Both kernels' plain
-// versions hold them to these exact operations.
+// ops/blockmath.py rounds them, and the MLP rows tile of both f32
+// CUDA-core backwards on csrc/f32gemm.cuh (z1 = h W1, GELU, dz = g W2^T,
+// dz1).  Both kernels' plain versions hold them to these exact operations.
 
 #pragma once
 
@@ -12,6 +11,8 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "f32gemm.cuh"
 
 namespace {
 
@@ -119,74 +120,113 @@ template <typename T> __device__ __forceinline__ void gelu_dgelu(float z, float&
 
 __host__ __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// ---- one tile of a weight gradient
+// ---- the MLP rows tile of the f32 backwards (csrc/f32gemm.cuh)
 
-constexpr int DW = 64;           // tile edge
-constexpr int DW_KC = 16;        // rows of A and B staged per step
-constexpr int DW_THREADS = 256;  // 16 x 16 threads, a 4 x 4 piece of the tile each
-
-// out (mo x no, f32) += A^T B, A (rows x mo) and B (rows x no) row-major in T.
-template <typename T> struct DwJob {
-  const T* a;
-  const T* b;
-  float* out;
-  int mo, no, tiles_n, tiles;
+// A tile of 128 rows x BN columns of I: z1 = h W1 (K = C), then dz = g
+// W2^T (K = G) in the same accumulators.  Between them zg = T(GELU(T(T(z1)
+// + b1))) is stored and GELU'(z1) parked in shared memory, a thread's own
+// slots; then dz1 = T(T(dz) GELU'(z1)) is stored row-major and, where dz1T
+// is not null, transposed (I, M) (a later product's K-major operand), and
+// summed into db1.  h and g are (M, C) and (M, G) rows, W1 (C, I) and W2
+// (I, G) as they lie; every value f32, rounded to T where the plain
+// version rounds.
+struct MlpRowsArgs {
+  const float *h, *w1, *b1, *g, *w2;
+  float *zg, *dz1, *dz1T, *db1;
+  int M, C, I, G, w1_vec, m_vec;
 };
 
-// Tile `tile` of job p over rows [k_begin, k_end), added to p.out with
-// atomicAdd; the block has DW_THREADS threads.
-template <typename T>
-__device__ __forceinline__ void dw_tile(const DwJob<T>& p, int tile, int k_begin, int k_end) {
-  __shared__ __align__(16) float as[DW_KC][DW];
-  __shared__ __align__(16) float bs[DW_KC][DW];
-  if (k_begin >= k_end) return;
-  const int m0 = (tile / p.tiles_n) * DW, n0 = (tile % p.tiles_n) * DW;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+constexpr int MLP_ROWS_STAGES = 2;  // ring slots (the park takes the rest)
 
-  for (int k0 = k_begin; k0 < k_end; k0 += DW_KC) {
-    float ra[4], rb[4];
+template <int BN> struct MlpRowsSmem {
+  static constexpr int RING = MLP_ROWS_STAGES * f32g::Gemm<BN>::SLOT;  // floats
+  static constexpr int PARK = 8 * (BN / 16) * f32g::THREADS;           // floats: GELU'(z1), a thread's 8 x TN
+  static constexpr int BYTES = (RING + PARK) * 4;
+};
+
+// The tile (blockIdx.x, blockIdx.y) of the grid (M / 128, I / BN).
+template <typename T, int BN> __device__ __forceinline__ void mlp_rows_tile(const MlpRowsArgs& p) {
+  constexpr int TN = BN / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* park = smem + MlpRowsSmem<BN>::RING;
+  const int m0 = blockIdx.x * f32g::BM, n0 = blockIdx.y * BN, tid = threadIdx.x;
+  const f32g::Pos t;
+  float acc[8][TN];
+  f32g::zero(acc);
+  // h's rows are K-contiguous; W1 (C, I) holds each K row's I contiguous
+  f32g::gemm<BN, MLP_ROWS_STAGES, true, false>(smem, f32g::Operand{p.h, p.C, p.M, 0},
+                                               f32g::Operand{p.w1, p.I, p.I, p.w1_vec}, m0, n0, 0, p.C, acc, t);
+  // the tile to the park, then row by row (few registers live beside the
+  // GELU): zg stored, GELU'(z1) parked in its place
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + DW_THREADS * q;
-      const int k = k0 + e / DW, c = e % DW;
-      ra[q] = (k < k_end && m0 + c < p.mo) ? to_f32(p.a[(long long)k * p.mo + m0 + c]) : 0.f;
-      rb[q] = (k < k_end && n0 + c < p.no) ? to_f32(p.b[(long long)k * p.no + n0 + c]) : 0.f;
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      park[(i * TN + j) * f32g::THREADS + tid] = acc[i][j];
+      acc[i][j] = 0.f;
     }
-    __syncthreads();
+  float bias[TN];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + DW_THREADS * q;
-      as[e / DW][e % DW] = ra[q];
-      bs[e / DW][e % DW] = rb[q];
-    }
-    __syncthreads();
+  for (int j = 0; j < TN; ++j) {
+    const int c = n0 + f32g::col<TN>(t.tx, j);
+    bias[j] = c < p.I ? p.b1[c] : 0.f;
+  }
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + t.row(i);
 #pragma unroll
-    for (int k = 0; k < DW_KC; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + f32g::col<TN>(t.tx, j);
+      float* slot = park + (i * TN + j) * f32g::THREADS + tid;
+      const float z1 = round_to<T>(round_to<T>(*slot) + bias[j]);
+      float g, dg;
+      gelu_dgelu<T>(z1, g, dg);
+      if (r < p.M && c < p.I) p.zg[static_cast<long long>(r) * p.I + c] = round_to<T>(g);
+      *slot = dg;
     }
   }
+  // g's rows are K-contiguous; W2 (I, G) holds each I column's K contiguous
+  f32g::gemm<BN, MLP_ROWS_STAGES, true, true>(smem, f32g::Operand{p.g, p.G, p.M, 0},
+                                              f32g::Operand{p.w2, p.G, p.I, 0}, m0, n0, 0, p.G, acc, t);
+  float colsum[TN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= p.mo) continue;
+  for (int j = 0; j < TN; ++j) colsum[j] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx * 4 + j;
-      if (c < p.no) atomicAdd(p.out + (long long)m * p.no + c, acc[i][j]);
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + t.row(i);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + f32g::col<TN>(t.tx, j);
+      const float d1 = round_to<T>(round_to<T>(acc[i][j]) * park[(i * TN + j) * f32g::THREADS + tid]);
+      acc[i][j] = d1;
+      if (r < p.M && c < p.I) {
+        p.dz1[static_cast<long long>(r) * p.I + c] = d1;
+        colsum[j] += d1;
+      }
     }
   }
+  if (p.dz1T != nullptr) {  // a thread's rows are two runs of 4
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + f32g::col<TN>(t.tx, j);
+      if (c >= p.I) continue;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = m0 + t.row(4 * u);
+        float* out = p.dz1T + static_cast<long long>(c) * p.M + r;
+        if (p.m_vec && r + 3 < p.M) {
+          *reinterpret_cast<float4*>(out) =
+              make_float4(acc[4 * u][j], acc[4 * u + 1][j], acc[4 * u + 2][j], acc[4 * u + 3][j]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (r + q < p.M) out[q] = acc[4 * u + q][j];
+        }
+      }
+    }
+  }
+  f32g::col_sums<TN>(colsum, smem, t);
+  if (tid < BN && n0 + tid < p.I) atomicAdd(p.db1 + n0 + tid, smem[16 * BN + tid]);
 }
 
 }  // namespace

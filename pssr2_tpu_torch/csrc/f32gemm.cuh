@@ -1,6 +1,7 @@
-// The f32 CUDA-core mainloop of the port's backward kernels (the CUDA-core
-// counterpart of csrc/convchain_tc.cuh): the RDNet tail backward
-// (csrc/rdtail.cu) and the convchain backward (csrc/convchain_bwd.cu) run
+// The f32 CUDA-core mainloop of the port's f32 kernels (the CUDA-core
+// counterpart of csrc/convchain_tc.cuh): the RDNet tail forward and
+// backward (csrc/rdtail.cu), the convchain backward (csrc/convchain_bwd.cu)
+// and the Swin block backward's token products (csrc/swinblock.cu) run
 // their products on it, in true f32 on the FMA units.  No tensor-core
 // instruction of any kind: the f32 routes hold a 1e-4 tolerance that TF32
 // would break.
@@ -251,16 +252,19 @@ __device__ __forceinline__ void gemm(float* smem, const Operand& a, const Operan
 // out (m x n, row stride n, f32, zeroed by the caller) += A (m x k) B
 // (k x n); tiles of BM x bn (128 or 64), tiles_n across; the K range of a
 // tile split in `splits` shares of kps (a multiple of BK), the shares' sums
-// met by atomicAdd.  Job 0 takes A K-major and B K-contiguous, jobs 1 and
-// 2 both K-major (the RDNet tail's dh, and its weight gradients).
+// met by atomicAdd.  A is K-major; B K-contiguous where kb, else K-major
+// (the RDNet tail's dh takes a K-contiguous B; every weight gradient, K =
+// M, both operands K-major).
 struct Job {
   Operand a, b;
   float* out;
-  int m, n, k, bn, tiles_n, splits, kps;
+  int m, n, k, bn, tiles_n, splits, kps, kb;
 };
+// Up to four jobs; first[i]: the first block of job i + 1 (an unused job
+// starts at the grid's end).
 struct Jobs {
-  Job j0, j1, j2;
-  int first1, first2;  // the first block of job 1 and of job 2
+  Job j0, j1, j2, j3;
+  int first1, first2, first3;
 };
 
 // One block of a job: its tile's share of K, then the atomics.
@@ -287,11 +291,11 @@ __device__ __forceinline__ void job_block(float* smem, const Operand& a, const O
 template <int STAGES>
 __global__ void __launch_bounds__(THREADS, 2) gemm_jobs_kernel(const Jobs p) {
   extern __shared__ __align__(16) float smem[];
-  const int ji = blockIdx.x >= p.first2 ? 2 : blockIdx.x >= p.first1 ? 1 : 0;
-  const int b = blockIdx.x - (ji == 2 ? p.first2 : ji == 1 ? p.first1 : 0);
+  const int ji = blockIdx.x >= p.first3 ? 3 : blockIdx.x >= p.first2 ? 2 : blockIdx.x >= p.first1 ? 1 : 0;
+  const int b = blockIdx.x - (ji == 3 ? p.first3 : ji == 2 ? p.first2 : ji == 1 ? p.first1 : 0);
   // the job's fields, selected field by field (kernel parameters are read,
   // never copied)
-#define F32G_JOB(f) (ji == 2 ? p.j2.f : ji == 1 ? p.j1.f : p.j0.f)
+#define F32G_JOB(f) (ji == 3 ? p.j3.f : ji == 2 ? p.j2.f : ji == 1 ? p.j1.f : p.j0.f)
   const int tiles_n = F32G_JOB(tiles_n), kps = F32G_JOB(kps), bn = F32G_JOB(bn);
   // a tile's K shares lie a whole round of tiles apart, so that the blocks
   // in flight together seldom add to the same outputs
@@ -302,9 +306,9 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_jobs_kernel(const Jobs p) {
   const Operand a{F32G_JOB(a.p), F32G_JOB(a.ld), F32G_JOB(a.rows), F32G_JOB(a.vec)};
   const Operand bo{F32G_JOB(b.p), F32G_JOB(b.ld), F32G_JOB(b.rows), F32G_JOB(b.vec)};
   float* out = F32G_JOB(out);
-  const int m = F32G_JOB(m), n = F32G_JOB(n);
+  const int m = F32G_JOB(m), n = F32G_JOB(n), kcontig = F32G_JOB(kb);
 #undef F32G_JOB
-  if (ji == 0) {
+  if (kcontig) {
     if (bn == 128)
       job_block<128, STAGES, true>(smem, a, bo, out, m, n, m0, n0, kb, ke);
     else
@@ -317,6 +321,23 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_jobs_kernel(const Jobs p) {
   }
 }
 
+// A job of gemm_jobs_kernel: out (m x n) += A B over K = k in shares of kps.
+inline Job job(Operand a, Operand b, float* out, int m, int n, int k, int bn, int kps, bool kb) {
+  return {a, b, out, m, n, k, bn, (n + bn - 1) / bn, (k + kps - 1) / kps, kps, kb ? 1 : 0};
+}
+
+// An operand as it lies in device memory; vec: whether a K-major operand's
+// rows take 16-byte copies.
+inline Operand operand(const float* p, int ld, int rows, bool kcontig) {
+  const bool vec = !kcontig && ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  return {p, ld, rows, vec ? 1 : 0};
+}
+
+// Launches up to four jobs (an unused one has m 0) in one grid on
+// `stream`; `raised`: the caller's opt_in record of the kernel.  Returns
+// the CUDA error code.
+template <int STAGES> int launch_jobs(Jobs p, int& raised, cudaStream_t stream);
+
 template <int BN, int STAGES> constexpr int gemm_smem_bytes() { return STAGES * Gemm<BN>::SLOT * 4; }
 
 // Opts a kernel in to `bytes` of dynamic shared memory (above 48 KB) once
@@ -326,6 +347,21 @@ template <typename Kernel> int opt_in(Kernel kernel, int bytes, int& raised) {
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) raised = bytes;
   return static_cast<int>(err);
+}
+
+template <int STAGES> int launch_jobs(Jobs p, int& raised, cudaStream_t stream) {
+  constexpr int bytes = gemm_smem_bytes<128, STAGES>();
+  if (int err = opt_in(gemm_jobs_kernel<STAGES>, bytes, raised)) return err;
+  auto blocks = [](const Job& j) {
+    return j.m > 0 ? static_cast<long long>((j.m + BM - 1) / BM) * j.tiles_n * j.splits : 0LL;
+  };
+  const long long b0 = blocks(p.j0), b1 = blocks(p.j1), b2 = blocks(p.j2), b3 = blocks(p.j3);
+  if (b0 + b1 + b2 + b3 > 0x7fffffffLL || b0 + b1 + b2 + b3 == 0) return static_cast<int>(cudaErrorInvalidValue);
+  p.first1 = static_cast<int>(b0);
+  p.first2 = static_cast<int>(b0 + b1);
+  p.first3 = static_cast<int>(b0 + b1 + b2);
+  gemm_jobs_kernel<STAGES><<<static_cast<unsigned>(b0 + b1 + b2 + b3), THREADS, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace f32g

@@ -26,29 +26,35 @@
 //   (one launch) and rdtail_tc_bwd (four), tiled by ops/rdtail.py:tail_plan.
 // - float32, and any other bfloat16 shape: the kernels below, on the CUDA
 //   cores in f32 (bf16 values are exact in f32), entry points rdtail_fwd
-//   (one launch) and rdtail_bwd (four).  The tensor cores have no f32
+//   (three launches) and rdtail_bwd (four).  The tensor cores have no f32
 //   product, and TF32 would not hold the f32 tolerance.
 //
-// CUDA-core forward, one launch.  A block owns 32 rows.  It normalises them into shared
-// memory (f32 copies of the T values, channel-major), then walks I in
-// chunks of 128: z1 for the chunk (256 threads, 4x4 outputs each, W1 in
-// slices of 16 rows through shared memory, the next slice prefetched into
-// registers), GELU into shared memory, and the chunk's part of zg W2 added
-// to the f32 output accumulators (4 rows x up to 8 columns a thread, G <=
-// 256).  The I-wide intermediate never leaves the chip.
-//
-// CUDA-core backward, four launches on the register-tiled f32 mainloop of
+// The CUDA-core route runs on the register-tiled f32 mainloop of
 // csrc/f32gemm.cuh (128 x BN output tiles, 8 x 8 or 8 x 4 a thread, a
-// cp.async ring; tiled by ops/rdtail.py:f32_plan), the weights read as
-// they lie:
+// cp.async ring), the weights read as they lie, every tensor f32 in device
+// memory (a bfloat16 caller's values converted exactly by the wrapper) and
+// T the type whose rounding points the plain version keeps.
+//
+// Forward, three launches (tiled by ops/rdtail.py:f32_fwd_plan):
+// (1) the LayerNorm of the rows, h = T(LN(x)) to scratch;
+// (2) fc1, a 128-row x BN-column tile of I a block: zg = T(GELU(T(T(h W1)
+//     + b1))) to scratch (M I f32: 2.4 GB written and read over the 21
+//     tails of an RDResUNet forward at batch 16, some 0.7 ms at 3.35 TB/s);
+// (3) fc2, 128 x BN tiles of G with K = I split over blocks where the
+//     tiles alone leave the card short: a tile's shares add into an f32
+//     workspace by atomicAdd and the last share to arrive (a counter a
+//     tile) rounds, adds b2 and writes out = T(T(zg W2) + b2); a tile of
+//     one share does so from its registers.
+//
+// Backward, four launches (tiled by ops/rdtail.py:f32_plan):
 // (1) the LayerNorm of the rows: h = T(LN(x)) and each row's statistics
 //     to scratch, db2 by column sums of g;
-// (2) the rows' products, a 128-row x BN-column tile of I a block: z1 =
-//     h W1 (K = C) and dz = g W2^T (K = G), one after the other in the same
-//     accumulators; zg = T(GELU(z1)) is stored and GELU'(z1) parked in
-//     shared memory between them; dz1 = T(T(dz) GELU'(z1)) is stored, also
-//     transposed (I, M) so that dh's A operand is K-major, and summed into
-//     db1;
+// (2) the rows' products (blockmath.cuh:mlp_rows_tile), a 128-row x
+//     BN-column tile of I a block: z1 = h W1 (K = C) and dz = g W2^T (K =
+//     G), one after the other in the same accumulators; zg = T(GELU(z1)) is
+//     stored and GELU'(z1) parked in shared memory between them; dz1 =
+//     T(T(dz) GELU'(z1)) is stored, also transposed (I, M) so that dh's A
+//     operand is K-major, and summed into db1;
 // (3) one launch of three products: dh = dz1 W1^T (K = I) and dW1 = h^T
 //     dz1, dW2 = zg^T g (K = M), each tile's K split over blocks until the
 //     launch holds some four waves, the shares met by atomicAdd in f32;
@@ -63,208 +69,14 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BM = 32;   // rows per block of the forward
-constexpr int KI = 128;  // columns of an I chunk
-constexpr int KC = 16;   // rows of a streamed operand slice
-constexpr int GJ = 8;    // output columns per thread in the fc2 product: G <= 32 * GJ
-
-// ---- LayerNorm of the block's rows into hT[c][r] (f32 copies of the T
-// values; zeros for rows past M and channels past C up to cp).  Warp w
-// normalises rows 4w..4w+3.
-template <typename T>
-__device__ void layernorm_rows(const T* __restrict__ x, const T* __restrict__ lns,
-                               const T* __restrict__ lnb, float* hT, int row0, int M, int C, int cp,
-                               float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = 0; i < 4; ++i) {
-    const int r = warp * 4 + i;
-    const int row = row0 + r;
-    if (row >= M) {
-      for (int c = lane; c < cp; c += 32) hT[c * BM + r] = 0.f;
-      continue;
-    }
-    const T* xr = x + (long long)row * C;
-    float s = 0.f, s2 = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = to_f32(xr[c]);
-      s += v;
-      s2 = fmaf(v, v, s2);
-    }
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    const float mu = __fdiv_rn(s, (float)C);
-    const float var = fmaxf(0.f, __fsub_rn(__fdiv_rn(s2, (float)C), __fmul_rn(mu, mu)));
-    const float rstd = __frsqrt_rn(__fadd_rn(var, eps));
-    for (int c = lane; c < cp; c += 32) {
-      float hv = 0.f;
-      if (c < C) {
-        const float mul = __fmul_rn(rstd, to_f32(lns[c]));
-        hv = round_to<T>(__fadd_rn(__fmul_rn(__fsub_rn(to_f32(xr[c]), mu), mul), to_f32(lnb[c])));
-      }
-      hT[c * BM + r] = hv;
-    }
-  }
-}
-
-// ---- the 32 x 128 product tile: thread (rg, cg) holds rows 4rg..4rg+3 and
-// columns 4cg..4cg+3.  Each warp spans 4 row groups and 8 column groups, so
-// its shared-memory reads of a k step are one broadcast float4 of A rows and
-// 8 float4 of B columns.
-struct TileIdx {
-  int rg, cg;
-  __device__ TileIdx() {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    rg = (warp >> 2) * 4 + (lane >> 3);
-    cg = (warp & 3) * 8 + (lane & 7);
-  }
-};
-
-// acc += a[k][rows] * b[k][cols] over the KC rows of a slice
-__device__ __forceinline__ void fma_slice(const float* a, const float* b, float (&acc)[4][4],
-                                          const TileIdx& t) {
-#pragma unroll
-  for (int k = 0; k < KC; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(a + k * BM + t.rg * 4);
-    const float4 bv = *reinterpret_cast<const float4*>(b + k * KI + t.cg * 4);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-  }
-}
-
-// A KC x KI slice of a row-major (kmax x nmax) operand with leading
-// dimension ld, rows k0.., columns n0..: 8 values a thread, zeros outside.
-template <typename T>
-__device__ __forceinline__ void load_b(const T* b, long long ld, int k0, int kmax, int n0, int nmax,
-                                       float (&r)[8]) {
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int e = threadIdx.x + THREADS * q;
-    const int k = k0 + e / KI, n = n0 + e % KI;
-    r[q] = (k < kmax && n < nmax) ? to_f32(b[k * ld + n]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_b(float* bs, const float (&r)[8]) {
-#pragma unroll
-  for (int q = 0; q < 8; ++q) bs[threadIdx.x + THREADS * q] = r[q];
-}
-
-// acc = a_full^T-tile x B over kp rows (a multiple of KC): a_full is [kp][BM]
-// in shared memory, B is streamed through bs with the next slice prefetched.
-template <typename T>
-__device__ void gemm_a_smem(const float* a_full, int kp, const T* b, long long ldb, int kmax, int n0,
-                            int nmax, float* bs, float (&acc)[4][4], const TileIdx& t) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float r[8];
-  load_b(b, ldb, 0, kmax, n0, nmax, r);
-  for (int k0 = 0; k0 < kp; k0 += KC) {
-    __syncthreads();  // the previous slice is consumed
-    store_b(bs, r);
-    __syncthreads();
-    if (k0 + KC < kp) load_b(b, ldb, k0 + KC, kmax, n0, nmax, r);
-    fma_slice(a_full + k0 * BM, bs, acc, t);
-  }
-}
-
-// ---------------------------------------------------------------- forward
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rdtail_fwd_kernel(const T* __restrict__ x, const T* __restrict__ lns, const T* __restrict__ lnb,
-                  const T* __restrict__ w1, const T* __restrict__ b1, const T* __restrict__ w2,
-                  const T* __restrict__ b2, T* __restrict__ out, int M, int C, int I, int G,
-                  float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const int cp = round_up(C, KC);
-  const int gj = (G + 31) / 32, gp = gj * 32;
-  float* hT = smem;          // [cp][BM]
-  float* bs = hT + cp * BM;  // [KC][KI]
-  float* zT = bs + KC * KI;  // [KI][BM]
-  float* w2s = zT + KI * BM; // [KC][gp]
-  const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const TileIdx t;
-
-  layernorm_rows<T>(x, lns, lnb, hT, row0, M, C, cp, eps);
-
-  float acc2[4][GJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < GJ; ++j) acc2[i][j] = 0.f;
-
-  for (int n0 = 0; n0 < I; n0 += KI) {
-    float acc[4][4];
-    gemm_a_smem<T>(hT, cp, w1, I, C, n0, I, bs, acc, t);
-    // z1 = T(T(acc) + b1), zg = T(GELU(z1)) into zT[col][row]; zeros past I
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + t.cg * 4 + j;
-      const float bias = col < I ? to_f32(b1[col]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float zg = 0.f;
-        if (col < I) zg = round_to<T>(gelu<T>(round_to<T>(round_to<T>(acc[i][j]) + bias)));
-        zT[(t.cg * 4 + j) * BM + t.rg * 4 + i] = zg;
-      }
-    }
-    // acc2 += zg W2[n0 : n0 + KI, :]; warp w holds rows 4w..4w+3, lane the
-    // columns lane + 32 j
-    for (int k0 = 0; k0 < KI && n0 + k0 < I; k0 += KC) {
-      __syncthreads();  // zT written, or the previous w2s slice consumed
-      for (int e = threadIdx.x; e < KC * gp; e += THREADS) {
-        const int k = n0 + k0 + e / gp, n = e % gp;
-        w2s[e] = (k < I && n < G) ? to_f32(w2[(long long)k * G + n]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < KC; ++k) {
-        const float4 av = *reinterpret_cast<const float4*>(zT + (k0 + k) * BM + warp * 4);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int j = 0; j < GJ; ++j) {
-          if (j < gj) {
-            const float bv = w2s[k * gp + lane + 32 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc2[i][j] = fmaf(ar[i], bv, acc2[i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // zT and w2s are rewritten by the next chunk
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + warp * 4 + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < GJ; ++j) {
-      const int col = lane + 32 * j;
-      if (j < gj && col < G)
-        out[(long long)row * G + col] = from_f32<T>(round_to<T>(acc2[i][j]) + to_f32(b2[col]));
-    }
-  }
-}
-
-// ------------------------------------------ backward, on the CUDA cores
-
-// Four launches on the f32 mainloop of csrc/f32gemm.cuh.  Every tensor is
-// f32 in device memory (a bfloat16 caller's values converted exactly by the
-// wrapper); T is the type whose rounding points the plain version keeps.
+constexpr int GMAX = 256;        // G the route takes (ops/rdtail.py:MAX_G)
+constexpr int CMAX = 1408;       // C the route takes (ops/rdtail.py:MAX_C)
 constexpr int LN_ROWS = 32;      // rows a block of the row kernels: 8 warps x 4
-constexpr int ROWS_STAGES = 2;   // ring slots of the rows launch (its park takes the rest)
-constexpr int JOBS_STAGES = 3;   // ring slots of the GEMM launch
+constexpr int FC_STAGES = 3;     // ring slots of the forward's products
+constexpr int JOBS_STAGES = 3;   // ring slots of the backward's GEMM launch
 
-// (1) h = T(LN(x)), each row's mean and 1/std; db2 = column sums of g
+// h = T(LN(x)) and, where mu_out is not null, each row's mean and 1/std;
+// where db2 is not null, db2 += the column sums of g (M, G)
 template <typename T>
 __global__ void __launch_bounds__(f32g::THREADS)
 rdtail_f32_ln_kernel(const float* __restrict__ x, const float* __restrict__ lns, const float* __restrict__ lnb,
@@ -287,7 +99,7 @@ rdtail_f32_ln_kernel(const float* __restrict__ x, const float* __restrict__ lns,
     const float mu = __fdiv_rn(s, (float)C);
     const float var = fmaxf(0.f, __fsub_rn(__fdiv_rn(s2, (float)C), __fmul_rn(mu, mu)));
     const float rstd = __frsqrt_rn(__fadd_rn(var, eps));
-    if (lane == 0) {
+    if (lane == 0 && mu_out != nullptr) {
       mu_out[row0 + r] = mu;
       rstd_out[row0 + r] = rstd;
     }
@@ -295,6 +107,7 @@ rdtail_f32_ln_kernel(const float* __restrict__ x, const float* __restrict__ lns,
     for (int c = lane; c < C; c += 32)
       hr[c] = round_to<T>(__fadd_rn(__fmul_rn(__fsub_rn(xr[c], mu), __fmul_rn(rstd, lns[c])), lnb[c]));
   }
+  if (db2 == nullptr) return;
   for (int c = threadIdx.x; c < G; c += f32g::THREADS) {
     float s = 0.f;
     for (int r = 0; r < rows; ++r) s += gout[static_cast<long long>(row0 + r) * G + c];
@@ -302,104 +115,99 @@ rdtail_f32_ln_kernel(const float* __restrict__ x, const float* __restrict__ lns,
   }
 }
 
-// (2) A tile of 128 rows x BN columns of I: z1 = h W1 (K = C), then dz =
-// g W2^T (K = G) in the same accumulators.  Between them GELU(z1) is
-// stored and GELU'(z1) parked in shared memory, a thread's own slots; then
-// dz1 = T(T(dz) GELU'(z1)) is stored, row-major (for dW1) and transposed
-// (I, M) (for dh, whose A operand it is), and summed into db1.
-struct RowsArgs {
-  const float *h, *w1, *b1, *g, *w2;
-  float *zg, *dz1, *dz1T, *db1;
-  int M, C, I, G, w1_vec, m_vec;
+// ---------------------------------------------------------------- forward
+
+struct FcArgs {
+  const float *a, *w, *bias;  // A (M, K) rows, W (K, N) as it lies, the bias (N)
+  float *out, *ws;            // out (M, N); fc2's f32 workspace (M, N), zeroed
+  int* count;                 // fc2: the shares arrived at each tile, zeroed
+  int M, K, N, kps, w_vec;
 };
 
-template <int BN> struct RowsSmem {
-  static constexpr int RING = ROWS_STAGES * f32g::Gemm<BN>::SLOT;  // floats
-  static constexpr int PARK = 8 * (BN / 16) * f32g::THREADS;       // floats: GELU'(z1), a thread's 8 x TN
-  static constexpr int BYTES = (RING + PARK) * 4;
-};
-
+// (2) zg = T(GELU(T(T(h W1) + b1))), the tile (blockIdx.x, blockIdx.y)
 template <typename T, int BN>
-__global__ void __launch_bounds__(f32g::THREADS, 2) rdtail_f32_rows_kernel(const RowsArgs p) {
+__global__ void __launch_bounds__(f32g::THREADS, 2) rdtail_f32_fc1_kernel(const FcArgs p) {
   constexpr int TN = BN / 16;
   extern __shared__ __align__(16) float smem[];
-  float* park = smem + RowsSmem<BN>::RING;
-  const int m0 = blockIdx.x * f32g::BM, n0 = blockIdx.y * BN, tid = threadIdx.x;
+  const int m0 = blockIdx.x * f32g::BM, n0 = blockIdx.y * BN;
   const f32g::Pos t;
   float acc[8][TN];
   f32g::zero(acc);
-  // h's rows are K-contiguous; W1 (C, I) holds each K row's I contiguous
-  f32g::gemm<BN, ROWS_STAGES, true, false>(smem, f32g::Operand{p.h, p.C, p.M, 0},
-                                           f32g::Operand{p.w1, p.I, p.I, p.w1_vec}, m0, n0, 0, p.C, acc, t);
-  // the tile to the park, then row by row (few registers live beside the
-  // GELU): zg stored, GELU'(z1) parked in its place
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      park[(i * TN + j) * f32g::THREADS + tid] = acc[i][j];
-      acc[i][j] = 0.f;
-    }
-  float bias[TN];
+  f32g::gemm<BN, FC_STAGES, true, false>(smem, f32g::Operand{p.a, p.K, p.M, 0}, f32g::Operand{p.w, p.N, p.N, p.w_vec},
+                                         m0, n0, 0, p.K, acc, t);
 #pragma unroll
   for (int j = 0; j < TN; ++j) {
     const int c = n0 + f32g::col<TN>(t.tx, j);
-    bias[j] = c < p.I ? p.b1[c] : 0.f;
+    if (c >= p.N) continue;
+    const float bias = p.bias[c];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = m0 + t.row(i);
+      if (r < p.M) p.out[static_cast<long long>(r) * p.N + c] = round_to<T>(gelu<T>(round_to<T>(round_to<T>(acc[i][j]) + bias)));
+    }
   }
-#pragma unroll 1
+}
+
+// (3) out = T(T(zg W2) + b2): grid (row tiles x K shares, column tiles),
+// block x taking share x / row tiles of row tile x % row tiles
+template <typename T, int BN>
+__global__ void __launch_bounds__(f32g::THREADS, 2) rdtail_f32_fc2_kernel(const FcArgs p) {
+  constexpr int TN = BN / 16;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int last;
+  const int tiles_m = (p.M + f32g::BM - 1) / f32g::BM;
+  const int share = blockIdx.x / tiles_m, tile = blockIdx.x % tiles_m + tiles_m * blockIdx.y;
+  const int m0 = (blockIdx.x % tiles_m) * f32g::BM, n0 = blockIdx.y * BN;
+  const int kb = share * p.kps, ke = min(p.K, kb + p.kps), splits = (p.K + p.kps - 1) / p.kps;
+  const f32g::Pos t;
+  float acc[8][TN];
+  f32g::zero(acc);
+  f32g::gemm<BN, FC_STAGES, true, false>(smem, f32g::Operand{p.a, p.K, p.M, 0}, f32g::Operand{p.w, p.N, p.N, p.w_vec},
+                                         m0, n0, kb, ke, acc, t);
+  auto finish = [&](long long o, int c, float v) { p.out[o] = round_to<T>(round_to<T>(v) + p.bias[c]); };
+  if (splits == 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = m0 + t.row(i);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = n0 + f32g::col<TN>(t.tx, j);
+        if (r < p.M && c < p.N) finish(static_cast<long long>(r) * p.N + c, c, acc[i][j]);
+      }
+    }
+    return;
+  }
+#pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = m0 + t.row(i);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = n0 + f32g::col<TN>(t.tx, j);
-      float* slot = park + (i * TN + j) * f32g::THREADS + tid;
-      const float z1 = round_to<T>(round_to<T>(*slot) + bias[j]);
-      float g, dg;
-      gelu_dgelu<T>(z1, g, dg);
-      if (r < p.M && c < p.I) p.zg[static_cast<long long>(r) * p.I + c] = round_to<T>(g);
-      *slot = dg;
+      if (r < p.M && c < p.N) atomicAdd(p.ws + static_cast<long long>(r) * p.N + c, acc[i][j]);
     }
   }
-  // g's rows are K-contiguous; W2 (I, G) holds each I column's K contiguous
-  f32g::gemm<BN, ROWS_STAGES, true, true>(smem, f32g::Operand{p.g, p.G, p.M, 0}, f32g::Operand{p.w2, p.G, p.I, 0},
-                                          m0, n0, 0, p.G, acc, t);
-  float colsum[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) colsum[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + t.row(i);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + f32g::col<TN>(t.tx, j);
-      const float d1 = round_to<T>(round_to<T>(acc[i][j]) * park[(i * TN + j) * f32g::THREADS + tid]);
-      acc[i][j] = d1;
-      if (r < p.M && c < p.I) {
-        p.dz1[static_cast<long long>(r) * p.I + c] = d1;
-        colsum[j] += d1;
-      }
+  // the last share of the tile to arrive finishes it, from the workspace
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(p.count + tile, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int e = threadIdx.x; e < f32g::BM * BN; e += f32g::THREADS) {
+    const int r = m0 + e / BN, c = n0 + e % BN;
+    if (r < p.M && c < p.N) {
+      const long long o = static_cast<long long>(r) * p.N + c;
+      finish(o, c, __ldcg(p.ws + o));
     }
   }
-  // dz1T: a thread's rows are two runs of 4
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int c = n0 + f32g::col<TN>(t.tx, j);
-    if (c >= p.I) continue;
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int r = m0 + t.row(4 * u);
-      float* out = p.dz1T + static_cast<long long>(c) * p.M + r;
-      if (p.m_vec && r + 3 < p.M) {
-        *reinterpret_cast<float4*>(out) = make_float4(acc[4 * u][j], acc[4 * u + 1][j], acc[4 * u + 2][j], acc[4 * u + 3][j]);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (r + q < p.M) out[q] = acc[4 * u + q][j];
-      }
-    }
-  }
-  f32g::col_sums<TN>(colsum, smem, t);
-  if (tid < BN && n0 + tid < p.I) atomicAdd(p.db1 + n0 + tid, smem[16 * BN + tid]);
+}
+
+// ------------------------------------------ backward, on the CUDA cores
+
+// (2) blockmath.cuh:mlp_rows_tile, with I = inter and G the output width
+template <typename T, int BN>
+__global__ void __launch_bounds__(f32g::THREADS, 2) rdtail_f32_rows_kernel(const MlpRowsArgs p) {
+  mlp_rows_tile<T, BN>(p);
 }
 
 // (3) dh = dz1 W1^T (K = I, into f32, rounded to T where it is read), dW1 =
@@ -457,27 +265,42 @@ rdtail_f32_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
 
 // ---------------------------------------------------------------- host
 
-size_t fwd_smem(int C, int G) {
-  return sizeof(float) * (round_up(C, KC) * BM + KC * KI + KI * BM + KC * round_up(G, 32));
-}
+int ln_blocks(int m) { return (m + LN_ROWS - 1) / LN_ROWS; }
 
-template <typename Kernel> int opt_in(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
-}
+// The CUDA-core forward's operands and tiling (ops/rdtail.py:f32_fwd_plan):
+// fc1's BN, fc2's BN and K share (a multiple of f32g::BK).
+struct F32Fwd {
+  const float *x, *lns, *lnb, *w1, *b1, *w2, *b2;
+  float *h, *zg, *out, *ws;
+  int* count;
+  int m, c, inter, gw, fc1_bn, fc2_bn, fc2_kps;
+  float eps;
+};
 
-template <typename T>
-int launch_fwd(const void* x, const void* lns, const void* lnb, const void* w1, const void* b1,
-               const void* w2, const void* b2, void* out, int m, int c, int inter, int g, float eps,
-               cudaStream_t stream) {
-  const size_t bytes = fwd_smem(c, g);
-  if (int err = opt_in(rdtail_fwd_kernel<T>, bytes)) return err;
-  rdtail_fwd_kernel<T><<<(m + BM - 1) / BM, THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(lns), static_cast<const T*>(lnb),
-      static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), m, c, inter, g, eps);
+template <typename Kernel> int launch_fc(Kernel kernel, int& raised, dim3 grid, const FcArgs& p, cudaStream_t s) {
+  constexpr int bytes = f32g::gemm_smem_bytes<128, FC_STAGES>();
+  if (int err = f32g::opt_in(kernel, bytes, raised)) return err;
+  kernel<<<grid, f32g::THREADS, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T> int launch_fwd(const F32Fwd& a, cudaStream_t s) {
+  static int raised[4] = {0, 0, 0, 0};
+  rdtail_f32_ln_kernel<T><<<ln_blocks(a.m), f32g::THREADS, 0, s>>>(a.x, a.lns, a.lnb, nullptr, a.h, nullptr, nullptr,
+                                                                   nullptr, a.m, a.c, 0, a.eps);
+  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  const int tiles_m = (a.m + f32g::BM - 1) / f32g::BM;
+  const FcArgs p1{a.h, a.w1, a.b1, a.zg, nullptr, nullptr, a.m, a.c, a.inter, a.c,
+                  f32g::operand(a.w1, a.inter, a.inter, false).vec};
+  const dim3 g1(tiles_m, (a.inter + a.fc1_bn - 1) / a.fc1_bn);
+  int err = a.fc1_bn == 128 ? launch_fc(rdtail_f32_fc1_kernel<T, 128>, raised[0], g1, p1, s)
+                            : launch_fc(rdtail_f32_fc1_kernel<T, 64>, raised[1], g1, p1, s);
+  if (err) return err;
+  const FcArgs p2{a.zg, a.w2, a.b2, a.out, a.ws, a.count, a.m, a.inter, a.gw, a.fc2_kps,
+                  f32g::operand(a.w2, a.gw, a.gw, false).vec};
+  const dim3 g2(tiles_m * ((a.inter + a.fc2_kps - 1) / a.fc2_kps), (a.gw + a.fc2_bn - 1) / a.fc2_bn);
+  return a.fc2_bn == 128 ? launch_fc(rdtail_f32_fc2_kernel<T, 128>, raised[2], g2, p2, s)
+                         : launch_fc(rdtail_f32_fc2_kernel<T, 64>, raised[3], g2, p2, s);
 }
 
 // The CUDA-core backward's operands and tiling (ops/rdtail.py:f32_plan):
@@ -490,23 +313,12 @@ struct F32Bwd {
   float eps;
 };
 
-// a GEMM launch's job: out (m x n) += A B over K = k in shares of kps
-f32g::Job job(f32g::Operand a, f32g::Operand b, float* out, int m, int n, int k, int bn, int kps) {
-  return {a, b, out, m, n, k, bn, (n + bn - 1) / bn, (k + kps - 1) / kps, kps};
-}
-
-// vec: whether a K-major operand's rows take 16-byte copies
-f32g::Operand operand(const float* p, int ld, int rows, bool kcontig) {
-  const bool vec = !kcontig && ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  return {p, ld, rows, vec ? 1 : 0};
-}
-
 template <typename T, int BN> int launch_rows(const F32Bwd& a, cudaStream_t s) {
   static int raised = 0;
-  constexpr int bytes = RowsSmem<BN>::BYTES;
+  constexpr int bytes = MlpRowsSmem<BN>::BYTES;
   if (int err = f32g::opt_in(rdtail_f32_rows_kernel<T, BN>, bytes, raised)) return err;
-  const RowsArgs p{a.h, a.w1, a.b1, a.g, a.w2, a.zg, a.dz1, a.dz1T, a.db1, a.m, a.c, a.inter, a.gw,
-                   operand(a.w1, a.inter, a.inter, false).vec, operand(a.dz1T, a.m, a.m, false).vec};
+  const MlpRowsArgs p{a.h, a.w1, a.b1, a.g, a.w2, a.zg, a.dz1, a.dz1T, a.db1, a.m, a.c, a.inter, a.gw,
+                      f32g::operand(a.w1, a.inter, a.inter, false).vec, f32g::operand(a.dz1T, a.m, a.m, false).vec};
   const dim3 grid((a.m + f32g::BM - 1) / f32g::BM, (a.inter + BN - 1) / BN);
   rdtail_f32_rows_kernel<T, BN><<<grid, f32g::THREADS, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -514,30 +326,22 @@ template <typename T, int BN> int launch_rows(const F32Bwd& a, cudaStream_t s) {
 
 int launch_jobs(const F32Bwd& a, cudaStream_t s) {
   static int raised = 0;
-  constexpr int bytes = f32g::gemm_smem_bytes<128, JOBS_STAGES>();
-  if (int err = f32g::opt_in(f32g::gemm_jobs_kernel<JOBS_STAGES>, bytes, raised)) return err;
+  using f32g::job;
+  using f32g::operand;
   f32g::Jobs p{};
   // dh (M, C) = dz1 W1^T: dz1T (I, M) K-major, W1 (C, I) K-contiguous
   p.j0 = job(operand(a.dz1T, a.m, a.m, false), operand(a.w1, a.inter, a.c, true), a.dh, a.m, a.c, a.inter,
-             a.bn_dh, a.kps_dh);
+             a.bn_dh, a.kps_dh, true);
   // dW1 (C, I) = h^T dz1 and dW2 (I, G) = zg^T g: both K-major
   p.j1 = job(operand(a.h, a.c, a.c, false), operand(a.dz1, a.inter, a.inter, false), a.dw1, a.c, a.inter, a.m,
-             a.bn_dw1, a.kps_dw1);
+             a.bn_dw1, a.kps_dw1, false);
   p.j2 = job(operand(a.zg, a.inter, a.inter, false), operand(a.g, a.gw, a.gw, false), a.dw2, a.inter, a.gw, a.m,
-             a.bn_dw2, a.kps_dw2);
-  auto blocks = [](const f32g::Job& j) {
-    return static_cast<long long>((j.m + f32g::BM - 1) / f32g::BM) * j.tiles_n * j.splits;
-  };
-  const long long b0 = blocks(p.j0), b1 = blocks(p.j1), b2 = blocks(p.j2);
-  if (b0 + b1 + b2 > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  p.first1 = static_cast<int>(b0);
-  p.first2 = static_cast<int>(b0 + b1);
-  f32g::gemm_jobs_kernel<JOBS_STAGES><<<static_cast<unsigned>(b0 + b1 + b2), f32g::THREADS, bytes, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+             a.bn_dw2, a.kps_dw2, false);
+  return f32g::launch_jobs<JOBS_STAGES>(p, raised, s);
 }
 
 template <typename T> int launch_bwd(const F32Bwd& a, cudaStream_t s) {
-  const int row_blocks = (a.m + LN_ROWS - 1) / LN_ROWS;
+  const int row_blocks = ln_blocks(a.m);
   rdtail_f32_ln_kernel<T><<<row_blocks, f32g::THREADS, 0, s>>>(a.x, a.lns, a.lnb, a.g, a.h, a.mu, a.rstd, a.db2,
                                                                a.m, a.c, a.gw, a.eps);
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
@@ -550,23 +354,38 @@ template <typename T> int launch_bwd(const F32Bwd& a, cudaStream_t s) {
 }
 
 bool valid(int m, int c, int inter, int g, int dtype) {
-  return m > 0 && c > 0 && inter > 0 && g > 0 && g <= 32 * GJ && (dtype == 0 || dtype == 1) &&
-         fwd_smem(c, g) <= 232448;
+  return m > 0 && c > 0 && inter > 0 && g > 0 && g <= GMAX && c <= CMAX && (dtype == 0 || dtype == 1) &&
+         (inter + 63) / 64 <= 65535;
 }
+
+bool bn_ok(int bn) { return bn == 128 || bn == 64; }
+bool kps_ok(int kps) { return kps > 0 && kps % f32g::BK == 0; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; every tensor but the f32 gradients is
-// in that type.  Returns the cudaGetLastError() code after the launch (0 on
-// success).  Pointers are device pointers; the launch goes on `stream` and
-// does not synchronise.
-extern "C" int rdtail_fwd(const void* x, const void* lns, const void* lnb, const void* w1,
-                          const void* b1, const void* w2, const void* b2, void* out, int m, int c,
-                          int inter, int g, int dtype, float eps, void* stream) {
-  if (!valid(m, c, inter, g, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+// The CUDA-core forward, three launches (the rows' LayerNorm, fc1, fc2).
+// Every tensor is f32 (a bfloat16 caller's converted, exactly); dtype (0 =
+// float32, 1 = bfloat16) is the type whose rounding the output keeps.  h
+// (M, C) and zg (M, I) are scratch; ws (M, G) f32 and count (one int a fc2
+// tile: ceil(M / 128) x ceil(G / fc2_bn)) must be zeroed before the call
+// where fc2 splits K (fc2_kps < I).  W1 (C, I) and W2 (I, G) are read as
+// they lie.  The tiling (ops/rdtail.py:f32_fwd_plan): fc1_bn, fc2_bn (128
+// or 64), fc2_kps (a multiple of 16).  Returns the first nonzero
+// cudaGetLastError() code (0 on success); the launches go on `stream` and
+// do not synchronise.
+extern "C" int rdtail_fwd(const void* x, const void* lns, const void* lnb, const void* w1, const void* b1,
+                          const void* w2, const void* b2, void* h, void* zg, void* out, void* ws, void* count, int m,
+                          int c, int inter, int g, int dtype, int fc1_bn, int fc2_bn, int fc2_kps, float eps,
+                          void* stream) {
+  if (!valid(m, c, inter, g, dtype) || !bn_ok(fc1_bn) || !bn_ok(fc2_bn) || !kps_ok(fc2_kps) ||
+      static_cast<long long>((m + f32g::BM - 1) / f32g::BM) * ((inter + fc2_kps - 1) / fc2_kps) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto w = [](void* p) { return static_cast<float*>(p); };
+  const F32Fwd a{f(x), f(lns), f(lnb), f(w1), f(b1), f(w2), f(b2), w(h), w(zg), w(out), w(ws),
+                 static_cast<int*>(count), m, c, inter, g, fc1_bn, fc2_bn, fc2_kps, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float>(x, lns, lnb, w1, b1, w2, b2, out, m, c, inter, g, eps, s);
-  return launch_fwd<__nv_bfloat16>(x, lns, lnb, w1, b1, w2, b2, out, m, c, inter, g, eps, s);
+  return dtype == 0 ? launch_fwd<float>(a, s) : launch_fwd<__nv_bfloat16>(a, s);
 }
 
 // The CUDA-core backward, four launches (the rows' LayerNorm, the rows'
@@ -574,9 +393,8 @@ extern "C" int rdtail_fwd(const void* x, const void* lns, const void* lnb, const
 // (a bfloat16 caller's converted, exactly); dtype (0 = float32, 1 =
 // bfloat16) is the type whose rounding the results keep.  h, dh (M, C), zg,
 // dz1 (M, I), dz1T (I, M) and stats (2 M) are scratch; dh, dlns, dlnb, dw1
-// (C, I), db1,
-// dw2 (I, G) and db2 must be zeroed before the call.  W1 (C, I) and W2
-// (I, G) are read as they lie.  The tiling (ops/rdtail.py:f32_plan):
+// (C, I), db1, dw2 (I, G) and db2 must be zeroed before the call.  W1 (C, I)
+// and W2 (I, G) are read as they lie.  The tiling (ops/rdtail.py:f32_plan):
 // rows_bn, the GEMM launch's bn_* (each 128 or 64) and K shares kps_*
 // (multiples of 16) for dh, dW1, dW2.  Returns the first nonzero
 // cudaGetLastError() code (0 on success).
@@ -586,10 +404,8 @@ extern "C" int rdtail_bwd(const void* x, const void* lns, const void* lnb, const
                           void* dx, void* dlns, void* dlnb, void* dw1, void* db1, void* dw2, void* db2, int m, int c,
                           int inter, int g, int dtype, int rows_bn, int bn_dh, int bn_dw1, int bn_dw2, int kps_dh,
                           int kps_dw1, int kps_dw2, float eps, void* stream) {
-  auto bn_ok = [](int bn) { return bn == 128 || bn == 64; };
-  auto kps_ok = [](int kps) { return kps > 0 && kps % f32g::BK == 0; };
   if (!valid(m, c, inter, g, dtype) || !bn_ok(rows_bn) || !bn_ok(bn_dh) || !bn_ok(bn_dw1) || !bn_ok(bn_dw2) ||
-      !kps_ok(kps_dh) || !kps_ok(kps_dw1) || !kps_ok(kps_dw2) || (inter + 63) / 64 > 65535)
+      !kps_ok(kps_dh) || !kps_ok(kps_dw1) || !kps_ok(kps_dw2))
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };

@@ -52,28 +52,43 @@
 // prefetched into registers; each thread holds a 4 x 4 tile of a 64 x 64
 // output chunk.
 //
-// Backward, two launches.  (1) One block per window recomputes the forward
-// and runs the chain back: gmlp = T(g s2); dz1 = T(T(gmlp W2^T) GELU'(z1));
-// dh2 = T(dz1 W1^T); the LN2 backward gives dy1 = T(g + LN2'); gproj =
-// T(dy1 s1); datt = T(gproj Wp^T); per head the attention backward (dp =
-// datt v^T, ds = p32 (dp - rowsum(dp p32)), dv = T(p^T datt), dq = T(T(ds)
-// k), dk = T(T(ds)^T q)); dh1 = T(dqkv Wqkv^T); the LN1 backward, dx = T(dy1
-// + LN1').  It writes dx, the rows that the weight gradients need (LN1(x),
-// att, LN2(y), GELU(z1), gmlp, dz1, gproj, dqkv) and each window's bias-map
-// gradient ds as scratch, and adds the bias and LayerNorm gradients'
-// per-window column sums with atomicAdd.  The values it must re-read in
-// another thread layout (att, LN2(y), gmlp, dz1, gproj) it reads back from
-// that scratch; y waits in dx until dy1 replaces it.  (2) dWqkv = LN1(x)^T
-// dqkv, dWp = att^T gproj, dW1 = LN2(y)^T dz1, dW2 = GELU(z1)^T gmlp in 64 x
-// 64 tiles with the rows split over blocks, and the bias map's sum over the
-// windows, all added with atomicAdd.  The atomics make the order of those
-// f32 sums change from run to run.
+// Backward, thirteen launches (tiled by ops/swinblock.py:f32_plan).  Only
+// the attention core depends on the windows and the roll: LayerNorm and
+// every product with W_qkv, W_proj, W_fc1 and W_fc2 act token by token, so
+// they run as whole-batch products over the M = B H W canonical rows on the
+// register-tiled f32 mainloop of csrc/f32gemm.cuh (128-row tiles, the
+// weights read as they lie and shared by every tile), and the attention
+// kernels gather a window's tokens through token_at.  The chain, every
+// intermediate an f32 scratch row (M rows):
+//  (1) LN1: h1 = T(LN1(x)), the row statistics;
+//  (2) qkv = T(T(h1 Wqkv) + bqkv);
+//  (3) the attention forward per (window, head): att = T(p v);
+//  (4) proj: y = T(x + T(T(T(att Wp) + bp) s1[b])), b the row's sample;
+//  (5) LN2: h2 = T(LN2(y)), the row statistics, gmlp = T(g s2[b]) and db2;
+//  (6) the MLP rows (blockmath.cuh:mlp_rows_tile): zg = T(GELU(z1)), z1 =
+//      T(T(h2 W1) + b1); dz1 = T(T(gmlp W2^T) GELU'(z1)); db1;
+//  (7) dh2 = T(dz1 W1^T);
+//  (8) the LN2 backward: dy1 = T(g + T(LN2'(dh2))), gproj = T(dy1 s1[b]);
+//      dln2_s, dln2_b, dbproj;
+//  (9) datt = T(gproj Wp^T);
+// (10) the attention backward per (window, head): dq, dk, dv into dqkv, the
+//      bias map's gradient summed over a block's windows in shared memory;
+// (11) dh1 = T(dqkv Wqkv^T);
+// (12) the LN1 backward: dx = T(dy1 + T(LN1'(dh1))); dln1_s, dln1_b, dbqkv;
+// (13) one launch of dWqkv = h1^T dqkv, dWp = att^T gproj, dW1 = h2^T dz1,
+//      dW2 = zg^T gmlp, K = M split in shares met by atomicAdd.
+// At the default SwinIR's blocks (C 96, hidden 192) the scratch rows take
+// about 63 C f32 values a token written or read, some 6.3 GB a block at
+// batch 16 (1.9 ms at 3.35 TB/s), beside 2.165 TFLOP over 16 blocks.  The
+// atomics make the order of the parameter gradients' f32 sums change from
+// run to run.
 //
 // The window attention: one block per window, one head at a time: q, k, v
 // of the head (d <= 32 channels) and its probabilities in shared memory.
 
 #include "blockmath.cuh"
 #include "convchain_tc.cuh"
+#include "f32gemm.cuh"
 #include "rdtail_tc.cuh"
 #include "swinblock_tc.cuh"
 
@@ -110,21 +125,27 @@ struct Geo {
   int B, H, W, C, heads, ws, shift, hidden;
 };
 
-// The canonical row (b H + r) W + c of each token t < n of window `win`, read
-// at the rolled coordinates, and its group label in the rolled image:
-// region 0 / 1 / 2 of rows [0, H - ws), [H - ws, H - shift), [H - shift, H),
-// times 3, plus that of the columns (pssr2_tpu/ops/pallas/swinblock.py:_window_group_labels).
-__device__ void window_tokens(const Geo& g, int win, long long* tok, int* lab) {
-  const int nwx = g.W / g.ws, nwy = g.H / g.ws, n = g.ws * g.ws;
+// The canonical row (b H + r) W + c of token t < n of window `win`, read at
+// the rolled coordinates, and its group label in the rolled image: region
+// 0 / 1 / 2 of rows [0, H - ws), [H - ws, H - shift), [H - shift, H), times
+// 3, plus that of the columns (pssr2_tpu/ops/pallas/swinblock.py:_window_group_labels).
+__device__ __forceinline__ void token_at(const Geo& g, int win, int t, long long& row, int& lab) {
+  const int nwx = g.W / g.ws, nwy = g.H / g.ws;
   const int b = win / (nwy * nwx), wy = (win / nwx) % nwy, wx = win % nwx;
+  const int rr = wy * g.ws + t / g.ws, cr = wx * g.ws + t % g.ws;
+  const int r = (rr + g.shift) % g.H, c = (cr + g.shift) % g.W;
+  row = ((long long)b * g.H + r) * g.W + c;
+  const int lr = rr < g.H - g.ws ? 0 : (rr < g.H - g.shift ? 1 : 2);
+  const int lc = cr < g.W - g.ws ? 0 : (cr < g.W - g.shift ? 1 : 2);
+  lab = lr * 3 + lc;
+}
+
+// token_at for each token of window `win` into tok and lab (-1 past n)
+__device__ void window_tokens(const Geo& g, int win, long long* tok, int* lab) {
+  const int n = g.ws * g.ws;
   for (int t = threadIdx.x; t < NT; t += blockDim.x) {
     if (t < n) {
-      const int rr = wy * g.ws + t / g.ws, cr = wx * g.ws + t % g.ws;
-      const int r = (rr + g.shift) % g.H, c = (cr + g.shift) % g.W;
-      tok[t] = ((long long)b * g.H + r) * g.W + c;
-      const int lr = rr < g.H - g.ws ? 0 : (rr < g.H - g.shift ? 1 : 2);
-      const int lc = cr < g.W - g.ws ? 0 : (cr < g.W - g.shift ? 1 : 2);
-      lab[t] = lr * 3 + lc;
+      token_at(g, win, t, tok[t], lab[t]);
     } else {
       tok[t] = -1;
       lab[t] = -1;
@@ -172,39 +193,31 @@ __device__ void ln_stats(F val, int n, int C, float eps, float* mu, float* rstd,
   __syncthreads();
 }
 
-// h = T((x - mu) (rstd gamma) + beta) into outT (k-major; zeros past n) and,
-// when rows is not null, into rows[t * C + c].
+// h = T((x - mu) (rstd gamma) + beta) into outT (k-major; zeros past n).
 template <typename T, typename F>
 __device__ void ln_apply(F val, int n, int C, const T* gam, const T* bet, const float* mu,
-                         const float* rstd, float* outT, T* rows) {
+                         const float* rstd, float* outT) {
   for (int e = threadIdx.x; e < NT * C; e += THREADS) {
     const int t = e & (NT - 1), c = e >> 6;
     float h = 0.f;
     if (t < n) {
       const float mul = __fmul_rn(rstd[t], to_f32(gam[c]));
-      const T ht = from_f32<T>(__fadd_rn(__fmul_rn(__fsub_rn(val(t, c), mu[t]), mul), to_f32(bet[c])));
-      h = to_f32(ht);
-      if (rows != nullptr) rows[(long long)t * C + c] = ht;
+      h = round_to<T>(__fadd_rn(__fmul_rn(__fsub_rn(val(t, c), mu[t]), mul), to_f32(bet[c])));
     }
-    if (outT != nullptr) outT[c * NT + t] = h;
+    outT[c * NT + t] = h;
   }
   __syncthreads();
 }
 
 // ---- products on the 64-token tile
 
-// The XOR swizzle of the streamed A slice: row groups of 4 stay whole.
-__device__ __forceinline__ int swz(int k) { return (k & 7) << 2; }
-
 // 64 x N = A (64 x K) B (K x N, row-major in global, T), in 64-column chunks:
 // thread (rg, cg) = (tid / 16, tid % 16) holds rows 4rg.. and the chunk's
 // columns 4cg..; epi(n0, rg, cg, acc) consumes each chunk.  A is k-major in
-// shared memory (a_smem[k * 64 + row]) or, with A_ROWS, row-major in global
-// (a_rows[row * K + k], rows past n read as zeros) streamed through `as`.
-// B streams through `bs` in 16-row slices, the next slice prefetched.
-template <typename T, bool A_ROWS, typename Epi>
-__device__ void gemm(const float* a_smem, const T* a_rows, int n, int K, const T* __restrict__ b, int N,
-                     float* bs, float* as, Epi epi) {
+// shared memory (a_smem[k * 64 + row]); B streams through `bs` in 16-row
+// slices, the next slice prefetched.
+template <typename T, typename Epi>
+__device__ void gemm(const float* a_smem, int K, const T* __restrict__ b, int N, float* bs, Epi epi) {
   const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
   for (int n0 = 0; n0 < N; n0 += NC) {
     float acc[4][4];
@@ -212,39 +225,27 @@ __device__ void gemm(const float* a_smem, const T* a_rows, int n, int K, const T
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    float rb[4], ra[4];
+    float rb[4];
     auto load = [&](int k0) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int e = tid + THREADS * q;
         const int k = k0 + (e >> 6), col = n0 + (e & 63);
         rb[q] = (k < K && col < N) ? to_f32(b[(long long)k * N + col]) : 0.f;
-        if (A_ROWS) {
-          const int row = e >> 4, ka = k0 + (e & 15);
-          ra[q] = (row < n && ka < K) ? to_f32(a_rows[(long long)row * K + ka]) : 0.f;
-        }
       }
     };
     load(0);
     for (int k0 = 0; k0 < K; k0 += KC) {
       __syncthreads();  // the previous slice is consumed
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int e = tid + THREADS * q;
-        bs[e] = rb[q];
-        if (A_ROWS) {
-          const int k = e & 15;
-          as[k * NT + ((e >> 4) ^ swz(k))] = ra[q];
-        }
-      }
+      for (int q = 0; q < 4; ++q) bs[tid + THREADS * q] = rb[q];
       __syncthreads();
       if (k0 + KC < K) load(k0 + KC);
       const int kc = min(KC, K - k0);
 #pragma unroll
       for (int k = 0; k < KC; ++k) {
         if (k < kc) {
-          const float4 av = A_ROWS ? *reinterpret_cast<const float4*>(as + k * NT + ((4 * rg) ^ swz(k)))
-                                   : *reinterpret_cast<const float4*>(a_smem + (k0 + k) * NT + 4 * rg);
+          const float4 av = *reinterpret_cast<const float4*>(a_smem + (k0 + k) * NT + 4 * rg);
           const float4 bv = *reinterpret_cast<const float4*>(bs + k * NC + 4 * cg);
           const float ar[4] = {av.x, av.y, av.z, av.w};
           const float br[4] = {bv.x, bv.y, bv.z, bv.w};
@@ -361,7 +362,7 @@ __device__ void head_probs(const float* qT, const float* kT, int d, int n, const
 }
 
 // Store the (rg, cg) tile, rounded to T, transposed (k-major over columns:
-// dst[j * 64 + i]) or as it is (dst[i * 64 + j]).
+// dst[j * 64 + i]).
 template <typename T>
 __device__ __forceinline__ void store_tile_t(float* dst, const float (&p)[4][4]) {
   const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
@@ -371,16 +372,6 @@ __device__ __forceinline__ void store_tile_t(float* dst, const float (&p)[4][4])
     store4(dst + (4 * cg + jj) * NT + 4 * rg, v);
   }
 }
-template <typename T>
-__device__ __forceinline__ void store_tile(float* dst, const float (&p)[4][4]) {
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const float v[4] = {round_to<T>(p[ii][0]), round_to<T>(p[ii][1]), round_to<T>(p[ii][2]), round_to<T>(p[ii][3])};
-    store4(dst + (4 * rg + ii) * NT + 4 * cg, v);
-  }
-}
-
 // The epilogue that rounds a product chunk to T, adds the bias in T and
 // stores it k-major at dst rows n0..: qkv.
 template <typename T> struct StoreBiased {
@@ -392,11 +383,10 @@ template <typename T> struct StoreBiased {
     for (int jj = 0; jj < 4; ++jj) {
       const int col = n0 + 4 * cg + jj;
       if (col >= N) continue;
-      const float bv = bias == nullptr ? 0.f : to_f32(bias[col]);
+      const float bv = to_f32(bias[col]);
       float v[4];
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-        v[ii] = bias == nullptr ? round_to<T>(acc[ii][jj]) : round_to<T>(round_to<T>(acc[ii][jj]) + bv);
+      for (int ii = 0; ii < 4; ++ii) v[ii] = round_to<T>(round_to<T>(acc[ii][jj]) + bv);
       store4(dst + col * NT + 4 * rg, v);
     }
   }
@@ -442,8 +432,8 @@ __global__ void __launch_bounds__(THREADS) swin_fwd_kernel(const FwdArgs<T> a) {
   auto xval = [&](int t, int c) { return to_f32(a.x[tok[t] * C + c]); };
 
   ln_stats(xval, n, C, a.eps, mu, rstd, red);
-  ln_apply<T>(xval, n, C, a.ln1_s, a.ln1_b, mu, rstd, ra, (T*)nullptr);
-  gemm<T, false>(ra, (const T*)nullptr, n, C, a.wqkv, 3 * C, bs, nullptr, StoreBiased<T>{r1, a.bqkv, 3 * C});
+  ln_apply<T>(xval, n, C, a.ln1_s, a.ln1_b, mu, rstd, ra);
+  gemm<T>(ra, C, a.wqkv, 3 * C, bs, StoreBiased<T>{r1, a.bqkv, 3 * C});
 
   // attention, head by head; the head's output over its q rows
   for (int h = 0; h < g.heads; ++h) {
@@ -459,8 +449,7 @@ __global__ void __launch_bounds__(THREADS) swin_fwd_kernel(const FwdArgs<T> a) {
   }
 
   // y = T(x + T(T(T(att Wp) + bp) s1)) into ra
-  gemm<T, false>(r1, (const T*)nullptr, n, C, a.wproj, C, bs, nullptr,
-                 [&](int n0, int rg, int cg, float (&acc)[4][4]) {
+  gemm<T>(r1, C, a.wproj, C, bs, [&](int n0, int rg, int cg, float (&acc)[4][4]) {
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int col = n0 + 4 * cg + jj;
@@ -480,11 +469,10 @@ __global__ void __launch_bounds__(THREADS) swin_fwd_kernel(const FwdArgs<T> a) {
 
   auto yval = [&](int t, int c) { return ra[c * NT + t]; };
   ln_stats(yval, n, C, a.eps, mu, rstd, red);
-  ln_apply<T>(yval, n, C, a.ln2_s, a.ln2_b, mu, rstd, r1, (T*)nullptr);
+  ln_apply<T>(yval, n, C, a.ln2_s, a.ln2_b, mu, rstd, r1);
 
   // zg = T(GELU(T(T(h2 W1) + b1))) into r1 rows [C, C + hidden)
-  gemm<T, false>(r1, (const T*)nullptr, n, C, a.w1, hid, bs, nullptr,
-                 [&](int n0, int rg, int cg, float (&acc)[4][4]) {
+  gemm<T>(r1, C, a.w1, hid, bs, [&](int n0, int rg, int cg, float (&acc)[4][4]) {
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int col = n0 + 4 * cg + jj;
@@ -498,8 +486,7 @@ __global__ void __launch_bounds__(THREADS) swin_fwd_kernel(const FwdArgs<T> a) {
   });
 
   // out = T(y + T(T(T(zg W2) + b2) s2))
-  gemm<T, false>(r1 + C * NT, (const T*)nullptr, n, hid, a.w2, C, bs, nullptr,
-                 [&](int n0, int rg, int cg, float (&acc)[4][4]) {
+  gemm<T>(r1 + C * NT, hid, a.w2, C, bs, [&](int n0, int rg, int cg, float (&acc)[4][4]) {
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int col = n0 + 4 * cg + jj;
@@ -517,312 +504,520 @@ __global__ void __launch_bounds__(THREADS) swin_fwd_kernel(const FwdArgs<T> a) {
   });
 }
 
-// ------------------------------------------------------- backward, windows
+// ------------------------------------------------ backward, CUDA cores
 
-template <typename T> struct BwdArgs {
-  const T *x, *gout;
-  T* dx;  // holds y, then dy1, then dx
-  const T *ln1_s, *ln1_b, *wqkv, *bqkv, *wproj, *bproj, *ln2_s, *ln2_b, *w1, *b1, *w2, *b2;
-  const float* bias;
-  const T *wqkv_t, *wproj_t, *w1_t, *w2_t;  // (3C, C), (C, C), (hidden, C), (C, hidden)
-  const float *s1, *s2;
-  // scratch rows, window by window (row win * n + t)
-  T *h1s, *atts, *h2s, *z1s, *zgs, *gmlps, *dz1s, *gprojs, *dqkvs;
-  float* dss;  // (windows, heads * n * n)
-  float *dln1_s, *dln1_b, *dwqkv, *dbqkv, *dwproj, *dbproj, *dln2_s, *dln2_b, *dw1, *db1, *dw2, *db2, *dbias;
-  Geo g;
+// Every tensor f32 in device memory (a bfloat16 caller's values converted
+// exactly by the wrapper); T is the type whose rounding points the plain
+// version keeps.  Rows are the canonical tokens (B H W of them); a window's
+// tokens are gathered through token_at.
+constexpr int LN_ROWS = 32;     // rows a block of the row kernels: 8 warps x 4
+constexpr int TOK_STAGES = 3;   // ring slots of the token products
+constexpr int JOBS_STAGES = 3;  // ring slots of the weight-gradient launch
+
+__host__ __device__ inline int windows(const Geo& g) { return g.B * (g.H / g.ws) * (g.W / g.ws); }
+
+// Column work over a block's `rows` rows with all its threads: the rows in
+// `parts` = THREADS / C runs (one where C > THREADS), thread e of parts x
+// C taking column e % C of run e / C.  f(c, r0, r1) walks rows [r0, r1).
+template <typename F> __device__ __forceinline__ void column_runs(int C, int rows, F f) {
+  const int parts = max(1, f32g::THREADS / C), run = (rows + parts - 1) / parts;
+  for (int e = threadIdx.x; e < parts * C; e += f32g::THREADS) {
+    const int c = e % C, r0 = (e / C) * run;
+    f(c, r0, min(rows, r0 + run));
+  }
+}
+
+// (1), (5): h = T(LN(src)) and each row's mean and 1/std; where cot is not
+// null, cot' = T(cot s[b]) (cot itself where s is null) into cot_out (when
+// not null) and its column sums into dsum.
+struct LnArgs {
+  const float *src, *gamma, *beta, *cot, *s;
+  float *h, *mu, *rstd, *cot_out, *dsum;
+  int M, C, hw;
   float eps;
 };
 
-__host__ __device__ inline size_t bwd_floats(int C) {
-  return (size_t)(3 * C + imax(C, NT) + 2 * NT) * NT + 6 * NT;
-}
-__host__ __device__ inline size_t bwd_smem(int C) {
-  return sizeof(float) * bwd_floats(C) + (sizeof(long long) + sizeof(int)) * NT;
-}
-
 template <typename T>
-__global__ void __launch_bounds__(THREADS) swin_bwd_rows_kernel(const BwdArgs<T> a) {
-  extern __shared__ __align__(16) float smem[];
-  const Geo& g = a.g;
-  const int C = g.C, hid = g.hidden, n = g.ws * g.ws, d = C / g.heads, lane = threadIdx.x & 31;
-  float* r1 = smem;                      // [3C][64]: qkv, then dqkv
-  float* ra = r1 + 3 * C * NT;           // [max(C, 64)][64]: h1, y, dh2, datt, dh1
-  float* pa = ra + imax(C, NT) * NT;     // [64][64]: p^T, p, ds; the LayerNorm sums
-  float* pb = pa + NT * NT;              // [64][64]: ds^T; the product slices
-  float* bs = pb;
-  float* as = pb + KC * NC;
-  float* red = pa;
-  float* mu1 = pb + NT * NT;
-  float* rstd1 = mu1 + NT;
-  float* mu2 = rstd1 + NT;
-  float* rstd2 = mu2 + NT;
-  float* m1 = rstd2 + NT;
-  float* m2 = m1 + NT;
-  long long* tok = reinterpret_cast<long long*>(smem + bwd_floats(C));
-  int* lab = reinterpret_cast<int*>(tok + NT);
-  const int win = blockIdx.x;
-  window_tokens(g, win, tok, lab);
-  const int b = win / ((g.H / g.ws) * (g.W / g.ws));
-  const bool scaled = a.s1 != nullptr;
-  const float s1 = scaled ? round_to<T>(a.s1[b]) : 1.f, s2 = scaled ? round_to<T>(a.s2[b]) : 1.f;
-  const long long m0 = (long long)win * n;
-  T* h1s = a.h1s + m0 * C;
-  T* atts = a.atts + m0 * C;
-  T* h2s = a.h2s + m0 * C;
-  T* z1s = a.z1s + m0 * hid;
-  T* zgs = a.zgs + m0 * hid;
-  T* gmlps = a.gmlps + m0 * C;
-  T* dz1s = a.dz1s + m0 * hid;
-  T* gprojs = a.gprojs + m0 * C;
-  T* dqkvs = a.dqkvs + m0 * 3 * C;
-  auto xval = [&](int t, int c) { return to_f32(a.x[tok[t] * C + c]); };
-  auto dxval = [&](int t, int c) { return to_f32(a.dx[tok[t] * C + c]); };
-  auto gval = [&](int t, int c) { return to_f32(a.gout[tok[t] * C + c]); };
-
-  // ---- the forward, recomputed
-  ln_stats(xval, n, C, a.eps, mu1, rstd1, red);
-  ln_apply<T>(xval, n, C, a.ln1_s, a.ln1_b, mu1, rstd1, ra, h1s);
-  gemm<T, false>(ra, (const T*)nullptr, n, C, a.wqkv, 3 * C, bs, as, StoreBiased<T>{r1, a.bqkv, 3 * C});
-  for (int h = 0; h < g.heads; ++h) {
-    float p[4][4];
-    head_probs<false, false>(r1 + h * d * NT, r1 + (C + h * d) * NT, d, n, a.bias + (size_t)h * n * n,
-                             g.shift ? lab : nullptr, nullptr, 1.f, p);
-    store_tile_t<T>(pa, p);
-    __syncthreads();
-    float o[4][2];
-    prod_kd(pa, r1 + (2 * C + h * d) * NT, d, n, o);
-    const int ig = threadIdx.x & 15, dg = threadIdx.x >> 4;
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int row = 4 * ig + ii, dd = dg + 16 * q;
-        if (row < n && dd < d) atts[(long long)row * C + h * d + dd] = from_f32<T>(o[ii][q]);
-      }
-    __syncthreads();
-  }
-  // y = T(x + T(T(T(att Wp) + bp) s1)): k-major into ra, and into dx
-  gemm<T, true>(nullptr, atts, n, C, a.wproj, C, bs, as, [&](int n0, int rg, int cg, float (&acc)[4][4]) {
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int col = n0 + 4 * cg + jj;
-      if (col >= C) continue;
-      const float bv = to_f32(a.bproj[col]);
-      float v[4];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int row = 4 * rg + ii;
-        float pv = round_to<T>(round_to<T>(acc[ii][jj]) + bv);
-        if (scaled) pv = round_to<T>(__fmul_rn(pv, s1));
-        v[ii] = 0.f;
-        if (row < n) {
-          const T y = from_f32<T>(xval(row, col) + pv);
-          a.dx[tok[row] * C + col] = y;
-          v[ii] = to_f32(y);
-        }
-      }
-      store4(ra + col * NT + 4 * rg, v);
+__global__ void __launch_bounds__(f32g::THREADS) swin_f32_ln_kernel(const LnArgs p) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, row0 = blockIdx.x * LN_ROWS, C = p.C;
+  const int rows = min(LN_ROWS, p.M - row0);
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp * 4 + i;
+    if (r >= rows) break;
+    const long long o = static_cast<long long>(row0 + r) * C;
+    float s = 0.f, s2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float v = p.src[o + c];
+      s += v;
+      s2 = fmaf(v, v, s2);
     }
-  });
-  auto yval = [&](int t, int c) { return ra[c * NT + t]; };
-  ln_stats(yval, n, C, a.eps, mu2, rstd2, red);
-  ln_apply<T>(yval, n, C, a.ln2_s, a.ln2_b, mu2, rstd2, nullptr, h2s);
-  // z1 = T(T(h2 W1) + b1) and GELU(z1) to scratch
-  gemm<T, true>(nullptr, h2s, n, C, a.w1, hid, bs, as, [&](int n0, int rg, int cg, float (&acc)[4][4]) {
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int col = n0 + 4 * cg + jj;
-      if (col >= hid) continue;
-      const float bv = to_f32(a.b1[col]);
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int row = 4 * rg + ii;
-        if (row >= n) continue;
-        const float z = round_to<T>(round_to<T>(acc[ii][jj]) + bv);
-        z1s[(long long)row * hid + col] = from_f32<T>(z);
-        zgs[(long long)row * hid + col] = from_f32<T>(gelu<T>(z));
-      }
-    }
-  });
-
-  // ---- the chain back
-  // gmlp = T(g s2); db2
-  for (int e = threadIdx.x; e < NT * C; e += THREADS) {
-    const int t = e & (NT - 1), c = e >> 6;
-    float v = 0.f;
-    if (t < n) {
-      v = gval(t, c);
-      if (scaled) v = round_to<T>(__fmul_rn(v, s2));
-      gmlps[(long long)t * C + c] = from_f32<T>(v);
-    }
-    v = warp_sum(v);
-    if (lane == 0) atomicAdd(a.db2 + c, v);
-  }
-  __syncthreads();
-  // dz1 = T(T(gmlp W2^T) GELU'(z1)); db1
-  gemm<T, true>(nullptr, gmlps, n, C, a.w2_t, hid, bs, as, [&](int n0, int rg, int cg, float (&acc)[4][4]) {
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int col = n0 + 4 * cg + jj;
-      float cs = 0.f;
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int row = 4 * rg + ii;
-        if (row >= n || col >= hid) continue;
-        const float z = to_f32(z1s[(long long)row * hid + col]);
-        const T dz = from_f32<T>(__fmul_rn(round_to<T>(acc[ii][jj]), dgelu<T>(z)));
-        dz1s[(long long)row * hid + col] = dz;
-        cs += to_f32(dz);
-      }
-      cs += __shfl_xor_sync(0xffffffffu, cs, 16);
-      if (lane < 16 && col < hid) atomicAdd(a.db1 + col, cs);
-    }
-  });
-  // dh2 = T(dz1 W1^T) into ra
-  gemm<T, true>(nullptr, dz1s, n, hid, a.w1_t, C, bs, as, StoreBiased<T>{ra, nullptr, C});
-  // LN2 backward with y (in dx): dy1 = T(g + LN2'(dh2)) into dx; gproj =
-  // T(dy1 s1); dln2_s, dln2_b, dbproj
-  auto xhat2 = [&](int t, int c) { return __fmul_rn(__fsub_rn(dxval(t, c), mu2[t]), rstd2[t]); };
-  token_sums([&](int t, int c, float& s, float& s2v) {
-    const float dxh = __fmul_rn(ra[c * NT + t], to_f32(a.ln2_s[c]));
-    s += dxh;
-    s2v = fmaf(dxh, xhat2(t, c), s2v);
-  }, n, C, m1, m2, red);
-  for (int e = threadIdx.x; e < NT * C; e += THREADS) {
-    const int t = e & (NT - 1), c = e >> 6;
-    float gp = 0.f, dg = 0.f, db = 0.f;
-    if (t < n) {
-      const float xh = xhat2(t, c), dh = ra[c * NT + t];
-      const float dxh = __fmul_rn(dh, to_f32(a.ln2_s[c]));
-      const float mm1 = __fdiv_rn(m1[t], (float)C), mm2 = __fdiv_rn(m2[t], (float)C);
-      const float dyln = round_to<T>(__fmul_rn(rstd2[t], __fsub_rn(__fsub_rn(dxh, mm1), __fmul_rn(xh, mm2))));
-      const float dy1 = round_to<T>(gval(t, c) + dyln);
-      a.dx[tok[t] * C + c] = from_f32<T>(dy1);
-      gp = scaled ? round_to<T>(__fmul_rn(dy1, s1)) : dy1;
-      gprojs[(long long)t * C + c] = from_f32<T>(gp);
-      dg = __fmul_rn(dh, xh);
-      db = dh;
-    }
-    gp = warp_sum(gp);
-    dg = warp_sum(dg);
-    db = warp_sum(db);
+    s = warp_sum(s);
+    s2 = warp_sum(s2);
+    const float mu = __fdiv_rn(s, (float)C);
+    const float var = fmaxf(0.f, __fsub_rn(__fdiv_rn(s2, (float)C), __fmul_rn(mu, mu)));
+    const float rstd = __frsqrt_rn(__fadd_rn(var, p.eps));
     if (lane == 0) {
-      atomicAdd(a.dbproj + c, gp);
-      atomicAdd(a.dln2_s + c, dg);
-      atomicAdd(a.dln2_b + c, db);
+      p.mu[row0 + r] = mu;
+      p.rstd[row0 + r] = rstd;
+    }
+    for (int c = lane; c < C; c += 32)
+      p.h[o + c] = round_to<T>(__fadd_rn(__fmul_rn(__fsub_rn(p.src[o + c], mu), __fmul_rn(rstd, p.gamma[c])), p.beta[c]));
+  }
+  if (p.cot == nullptr) return;
+  column_runs(C, rows, [&](int c, int r0, int r1) {
+    float sum = 0.f;
+    for (int r = r0; r < r1; ++r) {
+      const int row = row0 + r;
+      const long long o = static_cast<long long>(row) * C + c;
+      float v = p.cot[o];
+      if (p.s != nullptr) v = round_to<T>(__fmul_rn(v, round_to<T>(p.s[row / p.hw])));
+      if (p.cot_out != nullptr) p.cot_out[o] = v;
+      sum += v;
+    }
+    atomicAdd(p.dsum + c, sum);
+  });
+}
+
+// (2), (4), (7), (9), (11): the token products out (M, N) = A (M, K) W, A's
+// rows K-contiguous, W as it lies (K-contiguous where KB: W^T of a (N, K)
+// weight), 128 x BN tiles on the f32 mainloop, then the epilogue:
+// EPI_BIAS out = T(T(acc) + bias); EPI_RESID out = T(resid + T(T(T(acc) +
+// bias) s[b])) (s null: no scale); EPI_ROUND out = T(acc).
+enum { EPI_BIAS, EPI_RESID, EPI_ROUND };
+
+struct TokArgs {
+  const float *a, *w, *bias, *resid, *s;
+  float* out;
+  int M, K, N, hw, w_ld, w_vec;
+};
+
+template <typename T, int BN, bool KB, int EPI>
+__global__ void __launch_bounds__(f32g::THREADS, 2) swin_f32_tok_kernel(const TokArgs p) {
+  constexpr int TN = BN / 16;
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.x * f32g::BM, n0 = blockIdx.y * BN;
+  const f32g::Pos t;
+  float acc[8][TN];
+  f32g::zero(acc);
+  f32g::gemm<BN, TOK_STAGES, true, KB>(smem, f32g::Operand{p.a, p.K, p.M, 0}, f32g::Operand{p.w, p.w_ld, p.N, p.w_vec},
+                                       m0, n0, 0, p.K, acc, t);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + t.row(i);
+    if (r >= p.M) continue;
+    const float sc = EPI == EPI_RESID && p.s != nullptr ? round_to<T>(p.s[r / p.hw]) : 1.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + f32g::col<TN>(t.tx, j);
+      if (c >= p.N) continue;
+      const long long o = static_cast<long long>(r) * p.N + c;
+      float v = round_to<T>(acc[i][j]);
+      if (EPI != EPI_ROUND) v = round_to<T>(v + p.bias[c]);
+      if (EPI == EPI_RESID) {
+        if (p.s != nullptr) v = round_to<T>(__fmul_rn(v, sc));
+        v = round_to<T>(p.resid[o] + v);
+      }
+      p.out[o] = v;
     }
   }
-  __syncthreads();
-  // datt = T(gproj Wp^T) into ra
-  gemm<T, true>(nullptr, gprojs, n, C, a.wproj_t, C, bs, as, StoreBiased<T>{ra, nullptr, C});
+}
 
-  // attention backward, head by head: dq, dk, dv over q, k, v
-  for (int h = 0; h < g.heads; ++h) {
-    float* qT = r1 + h * d * NT;
-    float* kT = r1 + (C + h * d) * NT;
-    float* vT = r1 + (2 * C + h * d) * NT;
-    const float* doT = ra + h * d * NT;
-    float p[4][4], dp[4][4];
-    head_probs<false, false>(qT, kT, d, n, a.bias + (size_t)h * n * n, g.shift ? lab : nullptr, nullptr, 1.f, p);
-    store_tile<T>(pa, p);  // p as it is: k-major over the queries
-    prod_ij(doT, vT, d, dp);
-    const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+// (3), (10): the attention core of one head over the windows.  Block (x,
+// h) takes head h of windows x, x + gridDim.x, ...; its 128 threads split
+// each query row i in two halves of the keys, thread t taking row t % 64
+// and keys [32 hf, 32 hf + 32), hf = t / 64 (as a column, it sums over
+// those rows), so that a warp's shared-memory reads are one broadcast or
+// 32 consecutive words; the halves meet through shared memory.  A window's
+// head slices of q, k, v (and do) come in, and its results go out, through
+// shared memory by the whole block, a warp's accesses running along the
+// tokens' rows (a thread a row would touch 32 rows an access).  The head's
+// bias map sits in shared memory, transposed, for all the block's windows.
+// Per window, f32: s = q k^T + bias [-100 between group labels when
+// shifted], p32 = exp(s) (1 / sum), p = T(p32).  Forward: att = T(p v).
+// Backward, with do the attention output's cotangent: dp = do v^T, ds =
+// p32 (dp - rowsum(dp p32)), dv = T(p^T do), dq = T(T(ds) k), dk =
+// T(T(ds)^T q), and the bias map's gradient, the sum of ds over the
+// block's windows, in shared memory, added to dbias once a block.  DP: the
+// head's channels rounded up to 16 or 32.
+constexpr int ATT_THREADS = 2 * NT;
+constexpr int HALF = NT / 2;  // keys (or rows) of a thread
+
+struct AttnArgs {
+  const float *qkv, *bias, *dout;  // dout: the backward's cotangent (M, C)
+  float *out, *dbias;              // forward: att (M, C); backward: dqkv (M, 3C)
+  Geo g;
+};
+
+// Shared memory (floats) of the forward: q (then the outputs), k, v; the
+// bias map; the halves' row sums; and of the backward: q, k, v, do (then
+// dk, dv, dq); p, then T(ds); the bias-map sums; the bias map; two
+// partial-sum tiles; two pairs of row sums.  Both end with the window's
+// token rows (long long) and group labels (int).
+template <int DP> struct AttnSmem {
+  static constexpr int FWD = 3 * NT * DP + NT * NT + 2 * NT;
+  static constexpr int BWD = 4 * NT * DP + 2 * NT * (NT + 1) + NT * NT + 2 * NT * DP + 4 * NT;
+  static constexpr int TOKENS = NT * (8 + 4);
+  static constexpr int BWD_BYTES = BWD * 4 + TOKENS;
+};
+
+template <int DP> __device__ __forceinline__ void get_row(const float* src, float (&r)[DP]) {
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
+  for (int q = 0; q < DP / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(src)[q];
+    r[4 * q] = v.x, r[4 * q + 1] = v.y, r[4 * q + 2] = v.z, r[4 * q + 3] = v.w;
+  }
+}
+template <int DP> __device__ __forceinline__ void put_row(float* dst, const float (&r)[DP]) {
+#pragma unroll
+  for (int q = 0; q < DP / 4; ++q)
+    reinterpret_cast<float4*>(dst)[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+}
+template <int DP> __device__ __forceinline__ void add_row(float (&r)[DP], const float* src) {
+#pragma unroll
+  for (int q = 0; q < DP / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(src)[q];
+    r[4 * q] += v.x, r[4 * q + 1] += v.y, r[4 * q + 2] += v.z, r[4 * q + 3] += v.w;
+  }
+}
+// a . row, in four partial sums
+template <int DP> __device__ __forceinline__ float dot_row(const float (&a)[DP], const float* row) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < DP / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(row)[q];
+    s[0] = fmaf(a[4 * q], v.x, s[0]);
+    s[1] = fmaf(a[4 * q + 1], v.y, s[1]);
+    s[2] = fmaf(a[4 * q + 2], v.z, s[2]);
+    s[3] = fmaf(a[4 * q + 3], v.w, s[3]);
+  }
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+template <int DP> __device__ __forceinline__ void axpy_row(float (&acc)[DP], float a, const float* row) {
+#pragma unroll
+  for (int q = 0; q < DP / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(row)[q];
+    acc[4 * q] = fmaf(a, v.x, acc[4 * q]);
+    acc[4 * q + 1] = fmaf(a, v.y, acc[4 * q + 1]);
+    acc[4 * q + 2] = fmaf(a, v.z, acc[4 * q + 2]);
+    acc[4 * q + 3] = fmaf(a, v.w, acc[4 * q + 3]);
+  }
+}
+// r rounded to T
+template <typename T, int DP> __device__ __forceinline__ void round_row(float (&r)[DP]) {
+#pragma unroll
+  for (int dd = 0; dd < DP; ++dd) r[dd] = round_to<T>(r[dd]);
+}
+template <int DP> __device__ __forceinline__ void zero_row(float (&r)[DP]) {
+#pragma unroll
+  for (int dd = 0; dd < DP; ++dd) r[dd] = 0.f;
+}
+
+// The head's (n, n) bias map into bt, transposed (bt[j * NT + i])
+__device__ __forceinline__ void load_bias_t(const float* __restrict__ bias_h, int n, float* bt) {
+  for (int e = threadIdx.x; e < n * n; e += ATT_THREADS) {
+    const int j = e / n, i = e % n;
+    bt[j * NT + i] = bias_h[i * n + j];
+  }
+}
+
+// The canonical rows and group labels of window win's tokens into rows,
+// labs (thread t < n: token t), then a barrier.
+__device__ __forceinline__ void window_rows(const Geo& g, int win, int n, long long* rows, int* labs) {
+  if (threadIdx.x < n) token_at(g, win, threadIdx.x, rows[threadIdx.x], labs[threadIdx.x]);
+  __syncthreads();
+}
+
+// Copies between a window's rows (row stride ld floats, the head's d
+// channels at column col0 + part * part_ld) and `parts` [NT][DP] tiles at
+// tile[part]: consecutive threads take consecutive channels of a row, and
+// a thread issues eight loads before it stores any.  LOAD: global ->
+// shared (zeros past n and d); else shared -> global (rounded already).
+template <bool LOAD, int DP, int PARTS>
+__device__ __forceinline__ void window_copy(float* const (&tile)[PARTS], const float* src, float* dst,
+                                            const long long* rows, int n, int d, long long ld, int col0,
+                                            int part_ld) {
+  constexpr int ITER = NT * PARTS * DP / ATT_THREADS, UNROLL = 8;
+  static_assert(ITER % UNROLL == 0, "whole runs of eight copies a thread");
+#pragma unroll 1
+  for (int it = 0; it < ITER; it += UNROLL) {
+    float v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int e = threadIdx.x + (it + u) * ATT_THREADS;
+      const int t = e / (PARTS * DP), rest = e - t * PARTS * DP, part = rest / DP, dd = rest - part * DP;
+      const bool ok = t < n && dd < d;
+      const long long at = ok ? rows[t] * ld + col0 + part * part_ld + dd : 0;
+      if (LOAD)
+        v[u] = ok ? src[at] : 0.f;
+      else if (ok)
+        dst[at] = tile[part][t * DP + dd];
+    }
+    if (LOAD) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int e = threadIdx.x + (it + u) * ATT_THREADS;
+        const int t = e / (PARTS * DP), rest = e - t * PARTS * DP, part = rest / DP;
+        tile[part][e - t * PARTS * DP - part * DP + t * DP] = v[u];
+      }
+    }
+  }
+}
+
+// exp(s) of row i over the thread's keys j = j0 + jj (zeros past n), and
+// their sum: q in registers, k rows in ks (stride DP)
+template <int DP>
+__device__ __forceinline__ float exp_scores(const float (&q)[DP], const float* ks, const float* bt, const int* labs,
+                                           int lab, int i, int j0, int n, bool shifted, float (&pr)[HALF]) {
+  float sum = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < HALF; ++jj) {
+    const int j = j0 + jj;
+    pr[jj] = 0.f;
+    if (j < n) {
+      float v = __fadd_rn(dot_row(q, ks + j * DP), bt[j * NT + i]);
+      if (shifted && labs[j] != lab) v = __fadd_rn(v, NEG);
+      pr[jj] = expf(v);
+      sum += pr[jj];
+    }
+  }
+  return sum;
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(ATT_THREADS) swin_f32_attn_fwd_kernel(const AttnArgs p) {
+  using S = AttnSmem<DP>;
+  __shared__ __align__(16) float smem[S::FWD];
+  __shared__ long long rows[NT];
+  __shared__ int labs[NT];
+  float* qs = smem;  // q, then the outputs
+  float* ks = qs + NT * DP;
+  float* vs = ks + NT * DP;
+  float* bt = vs + NT * DP;
+  float* red = bt + NT * NT;
+  float* const qkv_tiles[3] = {qs, ks, vs};
+  float* const out_tile[1] = {qs};
+  const Geo& g = p.g;
+  const int n = g.ws * g.ws, C = g.C, d = C / g.heads, h = blockIdx.y, nwin = windows(g);
+  const int i = threadIdx.x % NT, hf = threadIdx.x / NT, j0 = hf * HALF;
+  load_bias_t(p.bias + static_cast<size_t>(h) * n * n, n, bt);
+  for (int win = blockIdx.x; win < nwin; win += gridDim.x) {
+    window_rows(g, win, n, rows, labs);
+    window_copy<true, DP, 3>(qkv_tiles, p.qkv, nullptr, rows, n, d, 3LL * C, h * d, C);
+    __syncthreads();
+    float q[DP], r[DP], pr[HALF];
+    if (i < n) {
+      get_row(qs + i * DP, q);
+      red[hf * NT + i] = exp_scores(q, ks, bt, labs, labs[i], i, j0, n, g.shift > 0, pr);
+    }
+    __syncthreads();  // the row sums are in; q is read
+    if (i < n) {
+      const float inv = __fdiv_rn(1.f, red[i] + red[NT + i]);
+      zero_row(r);
+#pragma unroll
+      for (int jj = 0; jj < HALF; ++jj)
+        if (j0 + jj < n) axpy_row(r, round_to<T>(__fmul_rn(pr[jj], inv)), vs + (j0 + jj) * DP);
+      if (hf == 1) put_row(qs + i * DP, r);
+    }
+    __syncthreads();
+    if (i < n && hf == 0) {
+      add_row(r, qs + i * DP);
+      round_row<T>(r);
+      put_row(qs + i * DP, r);
+    }
+    __syncthreads();
+    window_copy<false, DP, 1>(out_tile, nullptr, p.out, rows, n, d, C, h * d, 0);
+    __syncthreads();  // rows, labs and the tiles are free for the next window
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(ATT_THREADS) swin_f32_attn_bwd_kernel(const AttnArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* ks = qs + NT * DP;  // k, then dk
+  float* vs = ks + NT * DP;  // v, then dv
+  float* dos = vs + NT * DP;  // do, then dq
+  float* buf = dos + NT * DP;  // [NT][NT + 1]: p, then T(ds)
+  float* db = buf + NT * (NT + 1);
+  float* bt = db + NT * (NT + 1);
+  float* xa = bt + NT * NT;  // the second half's partial dv, then dk
+  float* xb = xa + NT * DP;  // and dq
+  float* red = xb + NT * DP;  // the halves' sums of exp(s), then of dp p32
+  long long* rows = reinterpret_cast<long long*>(red + 4 * NT);
+  int* labs = reinterpret_cast<int*>(rows + NT);
+  // the results leave from the tiles whose inputs are spent: dq from dos,
+  // dk from ks, dv from vs
+  float* const in_tiles[3] = {qs, ks, vs};
+  float* const out_tiles[3] = {dos, ks, vs};
+  float* const do_tile[1] = {dos};
+  const Geo& g = p.g;
+  const int n = g.ws * g.ws, C = g.C, d = C / g.heads, h = blockIdx.y, nwin = windows(g);
+  const int i = threadIdx.x % NT, hf = threadIdx.x / NT, j0 = hf * HALF;
+  load_bias_t(p.bias + static_cast<size_t>(h) * n * n, n, bt);
+  float* dbi = db + i * (NT + 1) + j0;  // this thread's bias-map sums
+#pragma unroll
+  for (int jj = 0; jj < HALF; ++jj) dbi[jj] = 0.f;
+  for (int win = blockIdx.x; win < nwin; win += gridDim.x) {
+    window_rows(g, win, n, rows, labs);
+    window_copy<true, DP, 3>(in_tiles, p.qkv, nullptr, rows, n, d, 3LL * C, h * d, C);
+    window_copy<true, DP, 1>(do_tile, p.dout, nullptr, rows, n, d, C, h * d, 0);
+    __syncthreads();
+    float q[DP], dout[DP], r[DP], pr[HALF], dp[HALF];
+    if (i < n) {
+      get_row(qs + i * DP, q);
+      get_row(dos + i * DP, dout);
+      red[hf * NT + i] = exp_scores(q, ks, bt, labs, labs[i], i, j0, n, g.shift > 0, pr);
+    }
+    __syncthreads();
+    if (i < n) {  // row i: p32, dp, the half's sum of dp p32, p
+      const float inv = __fdiv_rn(1.f, red[i] + red[NT + i]);
       float rs = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) rs += __fmul_rn(dp[ii][jj], p[ii][jj]);
-      rs = half_sum(rs);
-      const int i = 4 * rg + ii;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = 4 * cg + jj;
-        dp[ii][jj] = __fmul_rn(p[ii][jj], __fsub_rn(dp[ii][jj], rs));  // ds
-        if (i < n && j < n) a.dss[((size_t)win * g.heads + h) * n * n + i * n + j] = dp[ii][jj];
+      for (int jj = 0; jj < HALF; ++jj) {
+        pr[jj] = __fmul_rn(pr[jj], inv);
+        dp[jj] = 0.f;
+        if (j0 + jj < n) {
+          dp[jj] = dot_row(dout, vs + (j0 + jj) * DP);
+          rs += __fmul_rn(dp[jj], pr[jj]);
+          buf[i * (NT + 1) + j0 + jj] = round_to<T>(pr[jj]);
+        }
       }
+      red[(2 + hf) * NT + i] = rs;
     }
     __syncthreads();
-    float dv[4][2];
-    prod_kd(pa, doT, d, n, dv);
-    __syncthreads();
-    store_tile<T>(pa, dp);    // ds rounded, k-major over the queries
-    store_tile_t<T>(pb, dp);  // and over the keys
-    __syncthreads();
-    float dq[4][2], dk[4][2];
-    prod_kd(pb, kT, d, n, dq);
-    prod_kd(pa, qT, d, n, dk);
-    __syncthreads();
-    store_kd<T>(qT, d, dq);
-    store_kd<T>(kT, d, dk);
-    store_kd<T>(vT, d, dv);
-    __syncthreads();
-  }
-  // dqkv rows to scratch; dbqkv
-  for (int e = threadIdx.x; e < NT * 3 * C; e += THREADS) {
-    const int t = e & (NT - 1), c = e >> 6;
-    const float v = t < n ? r1[c * NT + t] : 0.f;
-    if (t < n) dqkvs[(long long)t * 3 * C + c] = from_f32<T>(v);
-    const float s = warp_sum(v);
-    if (lane == 0) atomicAdd(a.dbqkv + c, s);
-  }
-  // dh1 = T(dqkv Wqkv^T) into ra
-  gemm<T, false>(r1, (const T*)nullptr, n, 3 * C, a.wqkv_t, C, bs, as, StoreBiased<T>{ra, nullptr, C});
-  // LN1 backward: dx = T(dy1 + T(LN1'(dh1))); dln1_s, dln1_b
-  auto xhat1 = [&](int t, int c) { return __fmul_rn(__fsub_rn(xval(t, c), mu1[t]), rstd1[t]); };
-  token_sums([&](int t, int c, float& s, float& s2v) {
-    const float dxh = __fmul_rn(ra[c * NT + t], to_f32(a.ln1_s[c]));
-    s += dxh;
-    s2v = fmaf(dxh, xhat1(t, c), s2v);
-  }, n, C, m1, m2, red);
-  for (int e = threadIdx.x; e < NT * C; e += THREADS) {
-    const int t = e & (NT - 1), c = e >> 6;
-    float dg = 0.f, db = 0.f;
-    if (t < n) {
-      const float xh = xhat1(t, c), dh = ra[c * NT + t];
-      const float dxh = __fmul_rn(dh, to_f32(a.ln1_s[c]));
-      const float mm1 = __fdiv_rn(m1[t], (float)C), mm2 = __fdiv_rn(m2[t], (float)C);
-      const float dxln = round_to<T>(__fmul_rn(rstd1[t], __fsub_rn(__fsub_rn(dxh, mm1), __fmul_rn(xh, mm2))));
-      a.dx[tok[t] * C + c] = from_f32<T>(dxval(t, c) + dxln);
-      dg = __fmul_rn(dh, xh);
-      db = dh;
+    if (i < n) {  // column i over the half's rows: dv = T(p^T do)
+      zero_row(r);
+      for (int k = j0; k < min(n, j0 + HALF); ++k) axpy_row(r, buf[k * (NT + 1) + i], dos + k * DP);
+      if (hf == 1) put_row(xa + i * DP, r);
     }
-    dg = warp_sum(dg);
-    db = warp_sum(db);
-    if (lane == 0) {
-      atomicAdd(a.dln1_s + c, dg);
-      atomicAdd(a.dln1_b + c, db);
+    __syncthreads();
+    if (i < n) {
+      if (hf == 0) {  // vs is spent (dp is in registers)
+        add_row(r, xa + i * DP);
+        round_row<T>(r);
+        put_row(vs + i * DP, r);
+      }
+      // row i over the half's keys: ds, its bias-map sums, T(ds), dq = T(T(ds) k)
+      const float rs = red[2 * NT + i] + red[3 * NT + i];
+      zero_row(r);
+#pragma unroll
+      for (int jj = 0; jj < HALF; ++jj)
+        if (j0 + jj < n) {
+          const int j = j0 + jj;
+          const float ds = __fmul_rn(pr[jj], __fsub_rn(dp[jj], rs));
+          dbi[jj] += ds;
+          const float dsc = round_to<T>(ds);
+          buf[i * (NT + 1) + j] = dsc;
+          axpy_row(r, dsc, ks + j * DP);
+        }
+      if (hf == 1) put_row(xb + i * DP, r);
     }
+    __syncthreads();
+    if (i < n) {
+      if (hf == 0) {  // dos is spent
+        add_row(r, xb + i * DP);
+        round_row<T>(r);
+        put_row(dos + i * DP, r);
+      }
+      // column i over the half's rows: dk = T(T(ds)^T q)
+      zero_row(r);
+      for (int k = j0; k < min(n, j0 + HALF); ++k) axpy_row(r, buf[k * (NT + 1) + i], qs + k * DP);
+      if (hf == 1) put_row(xa + i * DP, r);
+    }
+    __syncthreads();
+    if (i < n && hf == 0) {  // ks is spent
+      add_row(r, xa + i * DP);
+      round_row<T>(r);
+      put_row(ks + i * DP, r);
+    }
+    __syncthreads();
+    window_copy<false, DP, 3>(out_tiles, nullptr, p.out, rows, n, d, 3LL * C, h * d, C);
+    __syncthreads();  // rows, labs and the tiles are free for the next window
   }
+  for (int e = threadIdx.x; e < n * n; e += ATT_THREADS)
+    atomicAdd(p.dbias + static_cast<size_t>(h) * n * n + e, db[(e / n) * (NT + 1) + e % n]);
 }
 
-// ------------------------------------------ backward, weight gradients
+// (6): the MLP rows, blockmath.cuh:mlp_rows_tile with I = hidden and G = C
+template <typename T, int BN>
+__global__ void __launch_bounds__(f32g::THREADS, 2) swin_f32_mlp_kernel(const MlpRowsArgs p) {
+  mlp_rows_tile<T, BN>(p);
+}
 
-template <typename T> struct ReduceArgs {
-  DwJob<T> job[4];
-  const float* ds;  // (windows, nbias)
-  float* dbias;
-  int M, rows_per_split, windows, wins_per_split, nbias;
+// (8), (12): the LayerNorm backward of the rows, dh already T-rounded: per
+// row m1 = mean(dh gamma), m2 = mean(dh gamma xhat); out = T(res + T(rstd
+// (dh gamma - m1 - xhat m2))), and T(out s[b]) into out2 where s and out2
+// are not null; dgamma, dbeta, the column sums of out (or out2) into osum
+// (when not null), and those of the (M, ew) rows `extra` into esum (when
+// not null).
+struct LnBwdArgs {
+  const float *src, *mu, *rstd, *gamma, *dh, *res, *s, *extra;
+  float *out, *out2, *dgamma, *dbeta, *osum, *esum;
+  int M, C, hw, ew;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) swin_reduce_kernel(const ReduceArgs<T> r) {
-  static_assert(THREADS == DW_THREADS, "dw_tile runs on DW_THREADS threads");
-  const int tid = threadIdx.x;
-  int tile = blockIdx.x, j = 0;
-  while (j < 4 && tile >= r.job[j].tiles) tile -= r.job[j++].tiles;
-  if (j == 4) {  // the bias map: column sums of ds over this split's windows
-    const int col = tile * THREADS + tid;
-    const int w0 = blockIdx.y * r.wins_per_split, w1 = min(r.windows, w0 + r.wins_per_split);
-    if (col >= r.nbias || w0 >= w1) return;
-    float s = 0.f;
-    for (int w = w0; w < w1; ++w) s += r.ds[(size_t)w * r.nbias + col];
-    atomicAdd(r.dbias + col, s);
-    return;
+__global__ void __launch_bounds__(f32g::THREADS) swin_f32_ln_bwd_kernel(const LnBwdArgs p) {
+  __shared__ float row_mu[LN_ROWS], row_rstd[LN_ROWS], row_m1[LN_ROWS], row_m2[LN_ROWS], row_s[LN_ROWS];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, row0 = blockIdx.x * LN_ROWS, C = p.C;
+  const int rows = min(LN_ROWS, p.M - row0);
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp * 4 + i;
+    if (r >= rows) break;
+    const long long o = static_cast<long long>(row0 + r) * C;
+    const float m = p.mu[row0 + r], rs = p.rstd[row0 + r];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float xhat = __fmul_rn(__fsub_rn(p.src[o + c], m), rs);
+      const float dxhat = __fmul_rn(p.dh[o + c], p.gamma[c]);
+      s1 += dxhat;
+      s2 = fmaf(dxhat, xhat, s2);
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      row_mu[r] = m;
+      row_rstd[r] = rs;
+      row_m1[r] = __fdiv_rn(s1, (float)C);
+      row_m2[r] = __fdiv_rn(s2, (float)C);
+      row_s[r] = p.s != nullptr ? round_to<T>(p.s[(row0 + r) / p.hw]) : 1.f;
+    }
   }
-  const int k_begin = blockIdx.y * r.rows_per_split;
-  dw_tile(r.job[j], tile, k_begin, min(r.M, k_begin + r.rows_per_split));
+  __syncthreads();
+  column_runs(C, rows, [&](int c, int r0, int r1) {
+    const float gf = p.gamma[c];
+    float dg = 0.f, db = 0.f, os = 0.f;
+    for (int r = r0; r < r1; ++r) {
+      const long long o = static_cast<long long>(row0 + r) * C + c;
+      const float xhat = __fmul_rn(__fsub_rn(p.src[o], row_mu[r]), row_rstd[r]);
+      const float dh = p.dh[o];
+      dg = fmaf(dh, xhat, dg);
+      db += dh;
+      const float dxhat = __fmul_rn(dh, gf);
+      const float dl =
+          round_to<T>(__fmul_rn(row_rstd[r], __fsub_rn(__fsub_rn(dxhat, row_m1[r]), __fmul_rn(xhat, row_m2[r]))));
+      float v = round_to<T>(p.res[o] + dl);
+      p.out[o] = v;
+      if (p.out2 != nullptr) {
+        v = round_to<T>(__fmul_rn(v, row_s[r]));
+        p.out2[o] = v;
+      }
+      os += v;
+    }
+    atomicAdd(p.dgamma + c, dg);
+    atomicAdd(p.dbeta + c, db);
+    if (p.osum != nullptr) atomicAdd(p.osum + c, os);
+  });
+  if (p.extra == nullptr) return;
+  column_runs(p.ew, rows, [&](int c, int r0, int r1) {
+    float sum = 0.f;
+    for (int r = r0; r < r1; ++r) sum += p.extra[static_cast<long long>(row0 + r) * p.ew + c];
+    atomicAdd(p.esum + c, sum);
+  });
 }
+
+// (13): dWqkv = LN1(x)^T dqkv, dWp = att^T gproj, dW1 = LN2(y)^T dz1, dW2 =
+// GELU(z1)^T gmlp (K = M, both operands K-major): f32g::gemm_jobs_kernel.
 
 // ------------------------------------------------------- window attention
 
@@ -879,10 +1074,8 @@ bool valid_geo(const Geo& g) {
   return g.B > 0 && g.ws > 0 && g.ws * g.ws <= NT && g.H > 0 && g.W > 0 && g.H % g.ws == 0 &&
          g.W % g.ws == 0 && g.heads > 0 && g.C > 0 && g.C % g.heads == 0 && g.C / g.heads <= DMAX &&
          g.hidden > 0 && g.shift >= 0 && g.shift < g.ws && fwd_smem(g.C, g.hidden) <= SMEM_MAX &&
-         bwd_smem(g.C) <= SMEM_MAX;
+         static_cast<long long>(g.B) * g.H * g.W < (1ll << 31);
 }
-
-int windows(const Geo& g) { return g.B * (g.H / g.ws) * (g.W / g.ws); }
 
 template <typename T> const T* cp(void* const* p, int i) { return static_cast<const T*>(p[i]); }
 
@@ -898,58 +1091,135 @@ int launch_fwd(void* const* p, const Geo& g, float eps, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_bwd(void* const* p, const Geo& g, int splits, float eps, cudaStream_t stream) {
-  BwdArgs<T> a;
-  a.x = cp<T>(p, 0);
-  a.gout = cp<T>(p, 1);
-  a.dx = static_cast<T*>(p[2]);
-  const T** params[12] = {&a.ln1_s, &a.ln1_b, &a.wqkv, &a.bqkv, &a.wproj, &a.bproj,
-                          &a.ln2_s, &a.ln2_b, &a.w1,   &a.b1,   &a.w2,    &a.b2};
-  for (int i = 0; i < 12; ++i) *params[i] = cp<T>(p, 3 + i);
-  a.bias = cp<float>(p, 15);
-  a.wqkv_t = cp<T>(p, 16);
-  a.wproj_t = cp<T>(p, 17);
-  a.w1_t = cp<T>(p, 18);
-  a.w2_t = cp<T>(p, 19);
-  a.s1 = cp<float>(p, 20);
-  a.s2 = cp<float>(p, 21);
-  T** scratch[9] = {&a.h1s, &a.atts, &a.h2s, &a.z1s, &a.zgs, &a.gmlps, &a.dz1s, &a.gprojs, &a.dqkvs};
-  for (int i = 0; i < 9; ++i) *scratch[i] = static_cast<T*>(p[22 + i]);
-  a.dss = static_cast<float*>(p[31]);
-  float** grads[13] = {&a.dln1_s, &a.dln1_b, &a.dwqkv, &a.dbqkv, &a.dwproj, &a.dbproj, &a.dln2_s,
-                       &a.dln2_b, &a.dw1,    &a.db1,   &a.dw2,   &a.db2,    &a.dbias};
-  for (int i = 0; i < 13; ++i) *grads[i] = static_cast<float*>(p[32 + i]);
-  a.g = g;
-  a.eps = eps;
-  const size_t bytes = bwd_smem(g.C);
-  if (int err = opt_in(swin_bwd_rows_kernel<T>, bytes)) return err;
-  const int nwin = windows(g);
-  swin_bwd_rows_kernel<T><<<nwin, THREADS, bytes, stream>>>(a);
-  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+// The CUDA-core backward's tiling (ops/swinblock.py:f32_plan), in the order
+// of the int array swin_block_bwd takes: the column tile (128 or 64) of the
+// token products qkv, proj, the MLP rows, dh2, datt, dh1; the attention
+// kernels' blocks a head, forward and backward; the weight-gradient
+// launch's column tiles and K shares (multiples of 16) of dWqkv, dWp, dW1,
+// dW2.
+enum { T_QKV, T_PROJ, T_MLP, T_DH2, T_DATT, T_DH1, T_ATT_FWD, T_ATT_BWD, T_JOB_BN, T_JOB_KPS = T_JOB_BN + 4, T_COUNT = T_JOB_KPS + 4 };
 
-  const int C = g.C, hid = g.hidden, n = g.ws * g.ws;
-  ReduceArgs<T> r;
-  const T* pairs[4][2] = {{a.h1s, a.dqkvs}, {a.atts, a.gprojs}, {a.h2s, a.dz1s}, {a.zgs, a.gmlps}};
-  float* outs[4] = {a.dwqkv, a.dwproj, a.dw1, a.dw2};
-  const int dims[4][2] = {{C, 3 * C}, {C, C}, {C, hid}, {hid, C}};
-  int tiles = 0;
-  for (int i = 0; i < 4; ++i) {
-    const int tn = (dims[i][1] + DW - 1) / DW;
-    r.job[i] = DwJob<T>{pairs[i][0], pairs[i][1], outs[i], dims[i][0], dims[i][1], tn,
-                        ((dims[i][0] + DW - 1) / DW) * tn};
-    tiles += r.job[i].tiles;
-  }
-  r.ds = a.dss;
-  r.dbias = a.dbias;
-  r.M = nwin * n;
-  r.rows_per_split = round_up((r.M + splits - 1) / splits, KC);
-  r.windows = nwin;
-  r.wins_per_split = (nwin + splits - 1) / splits;
-  r.nbias = g.heads * n * n;
-  const dim3 grid(tiles + (r.nbias + THREADS - 1) / THREADS, splits);
-  swin_reduce_kernel<T><<<grid, THREADS, 0, stream>>>(r);
+struct F32Bwd {
+  const float *x, *g, *w[12], *bias, *s1, *s2;
+  float *dx, *h1, *qkv, *att, *y, *h2, *gmlp, *zg, *dz1, *dh, *dy1, *gproj, *dqkv, *stats, *grad[13];
+  Geo geo;
+  int tiling[T_COUNT];
+  float eps;
+};
+enum { LN1_S, LN1_B, WQKV, BQKV, WP, BP, LN2_S, LN2_B, W1, B1, W2, B2 };
+
+template <typename T, int BN, bool KB, int EPI>
+int launch_tok_bn(const TokArgs& p, cudaStream_t s) {
+  static int raised = 0;
+  constexpr int bytes = f32g::gemm_smem_bytes<BN, TOK_STAGES>();
+  if (int err = f32g::opt_in(swin_f32_tok_kernel<T, BN, KB, EPI>, bytes, raised)) return err;
+  const dim3 grid((p.M + f32g::BM - 1) / f32g::BM, (p.N + BN - 1) / BN);
+  swin_f32_tok_kernel<T, BN, KB, EPI><<<grid, f32g::THREADS, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out (M, N) = a (M, K) W, W (K, N) as it lies (KB: W is (N, K), its
+// transpose taken)
+template <typename T, bool KB, int EPI>
+int launch_tok(int bn, const float* a, const float* w, float* out, int m, int k, int n, const float* bias,
+               const float* resid, const float* sc, int hw, cudaStream_t s) {
+  const TokArgs p{a, w, bias, resid, sc, out, m, k, n, hw, KB ? k : n, f32g::operand(w, n, n, KB).vec};
+  return bn == 128 ? launch_tok_bn<T, 128, KB, EPI>(p, s) : launch_tok_bn<T, 64, KB, EPI>(p, s);
+}
+
+template <typename T, int DP> int launch_attn(const F32Bwd& a, bool bwd, cudaStream_t s) {
+  const AttnArgs p{a.qkv, a.bias, a.dh, bwd ? a.dqkv : a.att, a.grad[12], a.geo};
+  const dim3 grid(a.tiling[bwd ? T_ATT_BWD : T_ATT_FWD], a.geo.heads);
+  if (!bwd) {
+    swin_f32_attn_fwd_kernel<T, DP><<<grid, ATT_THREADS, 0, s>>>(p);
+  } else {
+    static int raised = 0;
+    constexpr int bytes = AttnSmem<DP>::BWD_BYTES;
+    if (int err = f32g::opt_in(swin_f32_attn_bwd_kernel<T, DP>, bytes, raised)) return err;
+    swin_f32_attn_bwd_kernel<T, DP><<<grid, ATT_THREADS, bytes, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T> int launch_attn(const F32Bwd& a, bool bwd, cudaStream_t s) {
+  return a.geo.C / a.geo.heads <= 16 ? launch_attn<T, 16>(a, bwd, s) : launch_attn<T, 32>(a, bwd, s);
+}
+
+template <typename T, int BN> int launch_mlp(const F32Bwd& a, const float* gm, cudaStream_t s) {
+  static int raised = 0;
+  constexpr int bytes = MlpRowsSmem<BN>::BYTES;
+  if (int err = f32g::opt_in(swin_f32_mlp_kernel<T, BN>, bytes, raised)) return err;
+  const int m = a.geo.B * a.geo.H * a.geo.W, c = a.geo.C, hid = a.geo.hidden;
+  const MlpRowsArgs p{a.h2, a.w[W1], a.w[B1], gm, a.w[W2], a.zg, a.dz1, nullptr, a.grad[B1], m, c, hid, c,
+                      f32g::operand(a.w[W1], hid, hid, false).vec, 0};
+  const dim3 grid((m + f32g::BM - 1) / f32g::BM, (hid + BN - 1) / BN);
+  swin_f32_mlp_kernel<T, BN><<<grid, f32g::THREADS, bytes, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The thirteen launches, in the order of ops/swinblock.py:f32_plan's
+// "launches".
+template <typename T> int launch_bwd(const F32Bwd& a, cudaStream_t s) {
+  const Geo& g = a.geo;
+  const int m = g.B * g.H * g.W, c = g.C, hid = g.hidden, hw = g.H * g.W, lnb = (m + LN_ROWS - 1) / LN_ROWS;
+  const int* t = a.tiling;
+  float *mu1 = a.stats, *rstd1 = mu1 + m, *mu2 = rstd1 + m, *rstd2 = mu2 + m;
+  const float* gm = a.s2 != nullptr ? a.gmlp : a.g;      // T(g s2)
+  const float* gp = a.s1 != nullptr ? a.gproj : a.dy1;  // T(dy1 s1)
+  int err = 0;
+  auto step = [&](int e) {
+    if (!err) err = e ? e : static_cast<int>(cudaGetLastError());
+  };
+  // the forward again
+  swin_f32_ln_kernel<T><<<lnb, f32g::THREADS, 0, s>>>(
+      LnArgs{a.x, a.w[LN1_S], a.w[LN1_B], nullptr, nullptr, a.h1, mu1, rstd1, nullptr, nullptr, m, c, hw, a.eps});
+  step(0);
+  if (!err) step(launch_tok<T, false, EPI_BIAS>(t[T_QKV], a.h1, a.w[WQKV], a.qkv, m, c, 3 * c, a.w[BQKV], nullptr,
+                                                nullptr, hw, s));
+  if (!err) step(launch_attn<T>(a, false, s));
+  if (!err) step(launch_tok<T, false, EPI_RESID>(t[T_PROJ], a.att, a.w[WP], a.y, m, c, c, a.w[BP], a.x, a.s1, hw, s));
+  if (!err) {
+    swin_f32_ln_kernel<T><<<lnb, f32g::THREADS, 0, s>>>(LnArgs{a.y, a.w[LN2_S], a.w[LN2_B], a.g, a.s2, a.h2, mu2,
+                                                               rstd2, a.s2 != nullptr ? a.gmlp : nullptr,
+                                                               a.grad[B2], m, c, hw, a.eps});
+    step(0);
+  }
+  // the chain back
+  if (!err) step(t[T_MLP] == 128 ? launch_mlp<T, 128>(a, gm, s) : launch_mlp<T, 64>(a, gm, s));
+  if (!err) step(launch_tok<T, true, EPI_ROUND>(t[T_DH2], a.dz1, a.w[W1], a.dh, m, hid, c, nullptr, nullptr, nullptr,
+                                                hw, s));
+  if (!err) {
+    swin_f32_ln_bwd_kernel<T><<<lnb, f32g::THREADS, 0, s>>>(
+        LnBwdArgs{a.y, mu2, rstd2, a.w[LN2_S], a.dh, a.g, a.s1, nullptr, a.dy1, a.s1 != nullptr ? a.gproj : nullptr,
+                  a.grad[LN2_S], a.grad[LN2_B], a.grad[BP], nullptr, m, c, hw, 0});
+    step(0);
+  }
+  if (!err) step(launch_tok<T, true, EPI_ROUND>(t[T_DATT], gp, a.w[WP], a.dh, m, c, c, nullptr, nullptr, nullptr, hw,
+                                                s));
+  if (!err) step(launch_attn<T>(a, true, s));
+  if (!err) step(launch_tok<T, true, EPI_ROUND>(t[T_DH1], a.dqkv, a.w[WQKV], a.dh, m, 3 * c, c, nullptr, nullptr,
+                                                nullptr, hw, s));
+  if (!err) {
+    swin_f32_ln_bwd_kernel<T><<<lnb, f32g::THREADS, 0, s>>>(
+        LnBwdArgs{a.x, mu1, rstd1, a.w[LN1_S], a.dh, a.dy1, nullptr, a.dqkv, a.dx, nullptr, a.grad[LN1_S],
+                  a.grad[LN1_B], nullptr, a.grad[BQKV], m, c, hw, 3 * c});
+    step(0);
+  }
+  if (err) return err;
+  // the weight gradients, K = M, both operands K-major
+  static int raised = 0;
+  using f32g::job;
+  using f32g::operand;
+  auto dw = [&](int i, const float* x, int xw, const float* y, int yw, float* out) {
+    return job(operand(x, xw, xw, false), operand(y, yw, yw, false), out, xw, yw, m, t[T_JOB_BN + i],
+               t[T_JOB_KPS + i], false);
+  };
+  f32g::Jobs p{};
+  p.j0 = dw(0, a.h1, c, a.dqkv, 3 * c, a.grad[WQKV]);
+  p.j1 = dw(1, a.att, c, gp, c, a.grad[WP]);
+  p.j2 = dw(2, a.h2, c, a.dz1, hid, a.grad[W1]);
+  p.j3 = dw(3, a.zg, hid, gm, c, a.grad[W2]);
+  return f32g::launch_jobs<JOBS_STAGES>(p, raised, s);
 }
 
 Geo make_geo(int b, int h, int w, int c, int heads, int ws, int shift, int hidden) {
@@ -972,23 +1242,48 @@ extern "C" int swin_block_fwd(void* const* ptrs, int b, int h, int w, int c, int
   return dtype == 0 ? launch_fwd<float>(ptrs, g, eps, s) : launch_fwd<__nv_bfloat16>(ptrs, g, eps, s);
 }
 
-// Two launches.  ptrs: x, g (the output's cotangent), dx, the 12 parameters
-// and the bias map as for swin_block_fwd, W_qkv^T (3C, C), W_proj^T,
-// W_fc1^T (hidden, C), W_fc2^T (C, hidden), s1, s2; scratch (M rows, the
-// dtype): LN1(x) C, att C, LN2(y) C, z1 hidden, GELU(z1) hidden, gmlp C,
-// dz1 hidden, gproj C, dqkv 3C wide; the bias-map scratch (windows, heads n
-// n) f32; then the 13 f32 gradients (ln1_s, ln1_b, W_qkv, b_qkv, W_proj,
-// b_proj, ln2_s, ln2_b, W_fc1, b_fc1, W_fc2, b_fc2, bias map), zeroed before
-// the call.  `splits`: the blocks that share each row reduction.  Returns
-// the first nonzero cudaGetLastError() code (0 on success).
-extern "C" int swin_block_bwd(void* const* ptrs, int b, int h, int w, int c, int heads, int ws, int shift,
-                              int hidden, int dtype, int splits, float eps, void* stream) {
+// The CUDA-core backward, thirteen launches.  Every tensor is f32 (a
+// bfloat16 caller's converted, exactly); dtype (0 = float32, 1 = bfloat16)
+// is the type whose rounding the results keep.  ptrs: x, g (the output's
+// cotangent), dx, the 12 parameters as for swin_block_fwd (the weights read
+// as they lie), the bias map, s1, s2 ((B,) or both null); scratch of M = B
+// H W rows: LN1(x) C, qkv 3C, att C, y C, LN2(y) C, gmlp = T(g s2) C (null
+// without s2), GELU(z1) hidden, dz1 hidden, dh C (dh2, then datt, then dh1),
+// dy1 C, gproj = T(dy1 s1) C (null without s1), dqkv 3C wide, the row
+// statistics 4 M; then the 13 f32 gradients (ln1_s, ln1_b, W_qkv, b_qkv,
+// W_proj, b_proj, ln2_s, ln2_b, W_fc1, b_fc1, W_fc2, b_fc2, bias map),
+// zeroed before the call.  tiling: T_COUNT ints (ops/swinblock.py:f32_plan).
+// Returns the first nonzero cudaGetLastError() code (0 on success).
+extern "C" int swin_block_bwd(void* const* ptrs, const int* tiling, int b, int h, int w, int c, int heads, int ws,
+                              int shift, int hidden, int dtype, float eps, void* stream) {
   const Geo g = make_geo(b, h, w, c, heads, ws, shift, hidden);
-  if (!valid_geo(g) || (dtype != 0 && dtype != 1) || splits < 1 || splits > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_geo(g) || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < T_COUNT; ++i) {
+    const int v = tiling[i];
+    const bool ok = i == T_ATT_FWD || i == T_ATT_BWD ? v > 0 && v <= windows(g)
+                    : i >= T_JOB_KPS                ? v > 0 && v % f32g::BK == 0
+                                                    : v == 128 || v == 64;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  F32Bwd a{};
+  auto f = [&](int i) { return static_cast<const float*>(ptrs[i]); };
+  auto o = [&](int i) { return static_cast<float*>(ptrs[i]); };
+  a.x = f(0);
+  a.g = f(1);
+  a.dx = o(2);
+  for (int i = 0; i < 12; ++i) a.w[i] = f(3 + i);
+  a.bias = f(15);
+  a.s1 = f(16);
+  a.s2 = f(17);
+  float** scratch[13] = {&a.h1, &a.qkv, &a.att, &a.y, &a.h2, &a.gmlp, &a.zg, &a.dz1, &a.dh, &a.dy1, &a.gproj,
+                         &a.dqkv, &a.stats};
+  for (int i = 0; i < 13; ++i) *scratch[i] = o(18 + i);
+  for (int i = 0; i < 13; ++i) a.grad[i] = o(31 + i);
+  a.geo = g;
+  for (int i = 0; i < T_COUNT; ++i) a.tiling[i] = tiling[i];
+  a.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_bwd<float>(ptrs, g, splits, eps, s)
-                    : launch_bwd<__nv_bfloat16>(ptrs, g, splits, eps, s);
+  return dtype == 0 ? launch_bwd<float>(a, s) : launch_bwd<__nv_bfloat16>(a, s);
 }
 
 // Window attention on the wh x ww windows of the (B, H, W, 3C) image qkv

@@ -19,12 +19,15 @@ routes that :func:`route` picks up front from the dtype and the shape:
   :func:`tail_plan` tiles both.  The bound is the operations,
   2 M inter (C + G) forward and 2 M inter (3C + 2G) backward, against
   989 TFLOP/s.
-- float32, and every other bfloat16 shape, run on the CUDA cores in f32:
-  the forward is one launch; the backward is four on the register-tiled
-  f32 mainloop of ``csrc/f32gemm.cuh`` (the rows' LayerNorm, the rows'
-  products z1 and dz with the GELU between them, one launch of the three
-  products dh, dW1 and dW2, the LayerNorm backward), tiled by
-  :func:`f32_plan`.  The bound is the same operations against 67 TFLOP/s.
+- float32, and every other bfloat16 shape, run on the CUDA cores in f32,
+  on the register-tiled f32 mainloop of ``csrc/f32gemm.cuh``: the forward
+  is three launches (the rows' LayerNorm, fc1 with the GELU in its
+  epilogue, fc2 with K split over blocks where its tiles leave the card
+  short), tiled by :func:`f32_fwd_plan`; the backward four (the rows'
+  LayerNorm, the rows' products z1 and dz with the GELU between them, one
+  launch of the three products dh, dW1 and dW2, the LayerNorm backward),
+  tiled by :func:`f32_plan`.  The bound is the same operations against 67
+  TFLOP/s.
 
 :func:`fused_rd_tail` is a ``torch.autograd.Function``: for a CUDA tensor
 its forward and backward launch those kernels; for a CPU tensor they take
@@ -54,24 +57,25 @@ from .blockmath import (  # noqa: F401  (the GELU helpers are part of this modul
 )
 
 # Launches of the CUDA kernels in this process (the plain versions do not
-# count): the forward adds 1 per call, the backward BWD_LAUNCHES[route]
-# (its launches); tc_launches and tc_bwd_launches count those of the
+# count): the forward adds FWD_LAUNCHES[route] per call, the backward
+# BWD_LAUNCHES[route]; tc_launches and tc_bwd_launches count those of the
 # tensor-core route alone.
 launches = 0
 bwd_launches = 0
 tc_launches = 0
 tc_bwd_launches = 0
+FWD_LAUNCHES = {"tc": 1, "cuda_core": 3}
 BWD_LAUNCHES = {"tc": 4, "cuda_core": 4}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VOID_P, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# What csrc/rdtail.cu takes.  Both routes keep the fc2 accumulators of a
-# row tile in registers: G <= MAX_G.  The CUDA-core route holds the
-# normalised rows of a tile in f32 in shared memory: C <= MAX_C.  The
-# tensor-core route holds them in bf16 beside its ring of weight tiles, and
-# its LayerNorm backward keeps a row in a warp's registers: C <= TC_MAX_C;
-# a bf16 shape past it takes the CUDA-core route.
+# What csrc/rdtail.cu takes: C <= MAX_C and G <= MAX_G on both routes (the
+# tensor-core forward keeps the fc2 accumulators of a row tile in
+# registers).  The tensor-core route holds the normalised rows of a tile in
+# bf16 beside its ring of weight tiles, and its LayerNorm backward keeps a
+# row in a warp's registers: C <= TC_MAX_C; a bf16 shape past it takes the
+# CUDA-core route.
 MAX_G = 256
 MAX_C = 1408
 TC_MAX_C = 1024
@@ -235,11 +239,12 @@ def tail_plan(m, c, inter, g):
     return {"fwd": _best(fwd), "rows": _best(rows), "dh_bn": dh_bn, "dw_rows": dw_rows}
 
 
-# The CUDA-core backward's tiling (csrc/f32gemm.cuh, csrc/rdtail.cu): blocks
+# The CUDA-core route's tiling (csrc/f32gemm.cuh, csrc/rdtail.cu): blocks
 # of F32_THREADS threads own F32_BM rows x BN columns (128 or 64) of a
 # product, K comes F32_BK at a time through a ring of F32_ROWS_STAGES
-# (the rows launch, beside its park of GELU'(z1)) or F32_JOBS_STAGES
-# slots; the row kernels take F32_LN_ROWS rows a block.  A product takes
+# (the backward's rows launch, beside its park of GELU'(z1)) or
+# F32_JOBS_STAGES slots (the GEMM launch, and the forward's fc1 and fc2);
+# the row kernels take F32_LN_ROWS rows a block.  A product takes
 # the BN of least padded columns over F32_TILE_EFF (a thread's 8 x 4 tile
 # loads more per FMA than its 8 x 8).  The GEMM launch splits each
 # product's K over blocks until the launch holds about F32_TARGET_BLOCKS
@@ -279,6 +284,52 @@ def _f32_bn(n):
     return min((128, 64), key=lambda bn: _round_up(n, bn) / F32_TILE_EFF[bn])
 
 
+def _f32_rows_bn(m, n):
+    """The column tile of a product of m rows and n columns in one launch:
+    :func:`_f32_bn`, or 64 where 128 leaves the card's SMS short."""
+    bn = _f32_bn(n)
+    return 64 if _cdiv(m, F32_BM) * _cdiv(n, bn) < SMS else bn
+
+
+def f32_jobs(dims):
+    """The GEMM launch's jobs of ``dims`` [(name, m, n, k)]: [(name, m, n,
+    k, bn, kps, splits, tiles_m, tiles_n)], each in 128 x bn tiles, each
+    tile's K in ``splits`` shares of ``kps`` (a multiple of F32_BK): shares
+    of about the launch's work over F32_TARGET_BLOCKS, at least F32_MIN_K."""
+    dims = [(name, mm, nn, k, _f32_bn(nn)) for name, mm, nn, k in dims]
+    share = max(F32_MIN_K, sum(_cdiv(mm, F32_BM) * _cdiv(nn, bn) * k for _, mm, nn, k, bn in dims)
+                / F32_TARGET_BLOCKS)
+    jobs = []
+    for name, mm, nn, k, bn in dims:
+        kps = _round_up(_cdiv(k, max(1, round(k / share))), F32_BK)
+        jobs.append((name, mm, nn, k, bn, kps, _cdiv(k, kps), _cdiv(mm, F32_BM), _cdiv(nn, bn)))
+    return jobs
+
+
+@functools.cache
+def f32_fwd_plan(m, c, inter, g):
+    """Tiling of the CUDA-core forward at (M, C, inter, G), a dict:
+
+    - ``fc1``: (bn, grid): 128 rows x bn columns of I a block
+      (:func:`_f32_rows_bn`);
+    - ``fc2``: (bn, kps, splits, grid): 128 rows x bn columns of G a block,
+      I in ``splits`` shares of ``kps`` (a multiple of F32_BK, at least
+      F32_MIN_K) until the launch holds about F32_TARGET_BLOCKS blocks;
+      grid (row tiles x splits, column tiles), a tile's shares met in an
+      f32 workspace;
+    - ``ln_blocks``: blocks of the LayerNorm;
+    - ``launches``: the forward's launches in order (FWD_LAUNCHES)."""
+    fc1_bn = _f32_rows_bn(m, inter)
+    fc2_bn = _f32_bn(g)
+    tiles = _cdiv(m, F32_BM) * _cdiv(g, fc2_bn)
+    splits = max(1, min(_cdiv(inter, F32_MIN_K), F32_TARGET_BLOCKS // tiles))
+    kps = _round_up(_cdiv(inter, splits), F32_BK)
+    splits = _cdiv(inter, kps)
+    return {"fc1": (fc1_bn, (_cdiv(m, F32_BM), _cdiv(inter, fc1_bn))),
+            "fc2": (fc2_bn, kps, splits, (_cdiv(m, F32_BM) * splits, _cdiv(g, fc2_bn))),
+            "ln_blocks": _cdiv(m, F32_LN_ROWS), "launches": ("ln", "fc1", "fc2")}
+
+
 @functools.cache
 def f32_plan(m, c, inter, g):
     """Tiling of the CUDA-core backward at (M, C, inter, G), a dict:
@@ -293,17 +344,8 @@ def f32_plan(m, c, inter, g):
       least F32_MIN_K;
     - ``ln_blocks``: blocks of the two row kernels;
     - ``launches``: the backward's launches in order (BWD_LAUNCHES)."""
-    rows_bn = _f32_bn(inter)
-    if _cdiv(m, F32_BM) * _cdiv(inter, rows_bn) < SMS:
-        rows_bn = 64
-    dims = [(name, mm, nn, k, _f32_bn(nn)) for name, mm, nn, k in
-            (("dh", m, c, inter), ("dw1", c, inter, m), ("dw2", inter, g, m))]
-    share = max(F32_MIN_K, sum(_cdiv(mm, F32_BM) * _cdiv(nn, bn) * k for _, mm, nn, k, bn in dims)
-                / F32_TARGET_BLOCKS)
-    jobs = []
-    for name, mm, nn, k, bn in dims:
-        kps = _round_up(_cdiv(k, max(1, round(k / share))), F32_BK)
-        jobs.append((name, mm, nn, k, bn, kps, _cdiv(k, kps), _cdiv(mm, F32_BM), _cdiv(nn, bn)))
+    rows_bn = _f32_rows_bn(m, inter)
+    jobs = f32_jobs((("dh", m, c, inter), ("dw1", c, inter, m), ("dw2", inter, g, m)))
     return {"rows": (rows_bn, (_cdiv(m, F32_BM), _cdiv(inter, rows_bn))), "jobs": jobs,
             "ln_blocks": _cdiv(m, F32_LN_ROWS), "launches": ("ln", "rows", "jobs", "ln_bwd")}
 
@@ -395,7 +437,7 @@ def bwd_errors(got, ref):
 @functools.cache
 def _fwd_fn():
     fn = cuda_build.load("rdtail").rdtail_fwd
-    fn.argtypes = [_VOID_P] * 8 + [_INT] * 5 + [_FLOAT, _VOID_P]
+    fn.argtypes = [_VOID_P] * 12 + [_INT] * 8 + [_FLOAT, _VOID_P]
     fn.restype = _INT
     return fn
 
@@ -456,24 +498,39 @@ def _kernel_params(x, params):
 
 
 def _launch_fwd(x, params, eps):
+    """The (M, G) output by the forward launches of the route
+    (FWD_LAUNCHES)."""
     global launches, tc_launches
     m, c = x.shape
     inter, g = params[2].shape[-1], params[4].shape[-1]
-    lns, lnb, w1, b1, w2, b2 = _kernel_params(x, params)
+    kp = _kernel_params(x, params)
     x = _aligned(x)
-    out = torch.empty((m, g), dtype=x.dtype, device=x.device)
-    ptrs = (x, lns, lnb, w1, b1, w2, b2, out)
     tc = route(c, inter, g, x.dtype) == "tc"
     with torch.cuda.device(x.device):
         if tc:
+            out = torch.empty((m, g), dtype=x.dtype, device=x.device)
+            ptrs = (x, *kp, out)
             wg, ni, splits, _ = tail_plan(m, c, inter, g)["fwd"]
             err = _tc_fwd_fn()(*(t.data_ptr() for t in ptrs), m, c, inter, g, wg, ni, splits, eps, _stream(x.device))
         else:
-            err = _fwd_fn()(*(t.data_ptr() for t in ptrs), m, c, inter, g, _DTYPE_CODE[x.dtype], eps,
-                            _stream(x.device))
+            # every operand in f32 (a bf16 one converted exactly); scratch:
+            # the normalised rows, GELU(z1), and fc2's f32 workspace and
+            # tile counters where it splits I
+            f32 = {"dtype": torch.float32, "device": x.device}
+            plan = f32_fwd_plan(m, c, inter, g)
+            fc2_bn, kps, splits, _ = plan["fc2"]
+            split = splits > 1
+            ptrs = (*(_aligned(t.float()) for t in (x, *kp)), torch.empty((m, c), **f32),
+                    torch.empty((m, inter), **f32), torch.empty((m, g), **f32),
+                    torch.zeros((m, g) if split else 1, **f32),
+                    torch.zeros(_cdiv(m, F32_BM) * _cdiv(g, fc2_bn) if split else 1, dtype=torch.int32,
+                                device=x.device))
+            err = _fwd_fn()(*(t.data_ptr() for t in ptrs), m, c, inter, g, _DTYPE_CODE[x.dtype],
+                            plan["fc1"][0], fc2_bn, kps, eps, _stream(x.device))
+            out = ptrs[9].to(x.dtype)
     if err != 0:
         raise RuntimeError(f"rdtail_{'tc_' if tc else ''}fwd launch failed with CUDA error {err}")
-    launches += 1
+    launches += FWD_LAUNCHES["tc" if tc else "cuda_core"]
     tc_launches += int(tc)
     return out
 

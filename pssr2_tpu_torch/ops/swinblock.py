@@ -42,10 +42,14 @@ two routes that :func:`route` picks up front from the dtype and the shape:
   are read as the module holds them.
 - float32, and every other bfloat16 shape, run on the CUDA cores in f32:
   the forward is one launch (one thread block per window, everything
-  between x and the output on chip); the backward two (the per-window
-  gradient chain, then the weight gradients' and the bias map's reductions
-  over all rows and windows), which also read transposed copies of the
-  four weights.
+  between x and the output on chip); the backward thirteen, tiled by
+  :func:`f32_plan`: every LayerNorm and every product with a weight runs
+  token by token over all B H W canonical rows (the products on the
+  register-tiled f32 mainloop of ``csrc/f32gemm.cuh``, the weights read as
+  the module holds them), and only the attention core, forward again and
+  backward, goes window by window, one head of a window at a time a
+  thread block of 128 threads; the four weight gradients are one launch of
+  split-K products.
 
 :func:`fused_swin_block` is a ``torch.autograd.Function``: for a CUDA
 tensor its forward and backward launch those kernels; for a CPU tensor they
@@ -62,6 +66,7 @@ import torch
 
 from . import cuda_build, winattn
 from .blockmath import _aligned, _dgelu, _gelu, _layernorm, _layernorm_bwd, _matmul, _matmul_dw, _matmul_dx
+from .rdtail import F32_BM, F32_JOBS_STAGES, F32_LN_ROWS, _f32_rows_bn, f32_jobs, f32_jobs_smem
 
 # Launches of the CUDA kernels in this process (the plain versions do not
 # count): the forward adds 1 per call, the backward BWD_LAUNCHES[route] (its
@@ -71,7 +76,7 @@ launches = 0
 bwd_launches = 0
 tc_launches = 0
 tc_bwd_launches = 0
-BWD_LAUNCHES = {"tc": 2, "cuda_core": 2}
+BWD_LAUNCHES = {"tc": 2, "cuda_core": 13}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VOID_P, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -324,7 +329,7 @@ def _fwd_fn():
 @functools.cache
 def _bwd_fn():
     fn = cuda_build.load("swinblock").swin_block_bwd
-    fn.argtypes = [ctypes.POINTER(_VOID_P)] + [_INT] * 10 + [_FLOAT, _VOID_P]
+    fn.argtypes = [ctypes.POINTER(_VOID_P), ctypes.POINTER(_INT)] + [_INT] * 9 + [_FLOAT, _VOID_P]
     fn.restype = _INT
     return fn
 
@@ -423,22 +428,6 @@ def _launch_fwd(x, params, heads, ws, shift, eps, scales=None):
     return out
 
 
-# Blocks that the reduction launch aims to run (132 SMs x 8): the row
-# reductions are split over grid.y until the grid holds about this many.
-_REDUCE_TARGET_BLOCKS = 1056
-
-
-def _splits(c, hidden, n_bias):
-    """Row splits of the reduction launch: its 64 x 64 weight-gradient
-    tiles and 256-column bias-map blocks, times the splits, make about
-    ``_REDUCE_TARGET_BLOCKS`` blocks."""
-    def t(v):
-        return -(-v // 64)
-
-    tiles = t(c) * t(3 * c) + t(c) * t(c) + t(c) * t(hidden) + t(hidden) * t(c) + -(-n_bias // 256)
-    return max(1, min(65535, -(-_REDUCE_TARGET_BLOCKS // tiles)))
-
-
 def tc_dw_rows(m, c, hidden):
     """Rows of a share of the tensor-core weight-gradient launch, a multiple
     of 64, for about eight of its 64 x 128 tile blocks an SM
@@ -448,6 +437,77 @@ def tc_dw_rows(m, c, hidden):
     tiles = (_cdiv(c, 64) * _cdiv(3 * c, 128) + _cdiv(c, 64) * _cdiv(c, 128) + _cdiv(c, 64) * _cdiv(hidden, 128)
              + _cdiv(hidden, 64) * _cdiv(c, 128))
     return 64 * _cdiv(_cdiv(m, max(1, min(_cdiv(m, 64), _cdiv(8 * SMS, tiles)))), 64)
+
+
+# The CUDA-core backward's attention kernels (csrc/swinblock.cu): a block of
+# 128 threads takes one head of a window at a time, two threads a query
+# row, the head's channels padded to 16 or 32 (ATTN_DP); the backward block
+# holds q, k, v and the cotangent of its head, one 64 x 65 tile, the bias
+# map's 64 x 65 sums, the bias map, the halves' partial sums and the
+# window's token rows and labels (f32_attn_smem).  Each kernel's grid is (blocks, heads), block x of head
+# h taking windows x, x + blocks, ...: ATTN_BLOCKS["fwd"] blocks an SM
+# forward, backward as many as fit (at most ATTN_BLOCKS["bwd"]).
+ATTN_DP = (16, 32)
+ATTN_BLOCKS = {"fwd": 8, "bwd": 4}
+SM_SMEM = 233472
+# The launches of the CUDA-core backward, in order (csrc/swinblock.cu)
+F32_LAUNCHES = ("ln1", "qkv", "attn_fwd", "proj", "ln2", "mlp", "dh2", "ln2_bwd", "datt", "attn_bwd", "dh1",
+                "ln1_bwd", "dw")
+
+
+def f32_attn_smem(dp):
+    """Dynamic shared memory of the backward attention block
+    (AttnSmem::BWD_BYTES)."""
+    n = MAX_N
+    return 4 * (4 * n * dp + 2 * n * (n + 1) + n * n + 2 * n * dp + 4 * n) + 12 * n
+
+
+def f32_tok_smem(bn):
+    """Shared memory of a token-product block: its ring of A and B tiles
+    (f32g::gemm_smem_bytes at TOK_STAGES = F32_JOBS_STAGES)."""
+    return f32_jobs_smem() if bn == 128 else 4 * F32_JOBS_STAGES * 16 * (F32_BM + 4 + bn + 4)
+
+
+@functools.cache
+def f32_plan(m, c, hidden, heads, ws):
+    """Tiling of the CUDA-core backward of a block of M = B H W tokens, a
+    dict:
+
+    - ``tok``: {name: (bn, grid)} of the token products qkv (N = 3C, K =
+      C), proj, datt (N = K = C), dh2 (N = C, K = hidden) and dh1 (N = C, K
+      = 3C): 128 rows x bn columns a block (rdtail's :func:`_f32_rows_bn`);
+    - ``mlp``: (bn, grid) of the MLP rows, 128 rows x bn columns of hidden;
+    - ``attn``: (dp, fwd blocks, bwd blocks): the head's channels padded
+      (16 or 32) and each attention kernel's blocks a head, the blocks an
+      SM of ATTN_BLOCKS over the heads, at most one a window;
+    - ``jobs``: [(name, m, n, k, bn, kps, splits, tiles_m, tiles_n)] of the
+      weight-gradient launch, dwqkv (C x 3C), dwproj (C x C), dw1 (C x
+      hidden), dw2 (hidden x C), K = M (rdtail's :func:`f32_jobs`);
+    - ``ln_blocks``: blocks of the row kernels;
+    - ``launches``: the backward's launches in order (BWD_LAUNCHES)."""
+    tok = {}
+    for name, n in (("qkv", 3 * c), ("proj", c), ("dh2", c), ("datt", c), ("dh1", c)):
+        bn = _f32_rows_bn(m, n)
+        tok[name] = (bn, (_cdiv(m, F32_BM), _cdiv(n, bn)))
+    mlp_bn = _f32_rows_bn(m, hidden)
+    nwin, d = m // (ws * ws), c // heads
+    dp = next(v for v in ATTN_DP if d <= v)
+    per_sm = {"fwd": ATTN_BLOCKS["fwd"], "bwd": min(ATTN_BLOCKS["bwd"], SM_SMEM // (f32_attn_smem(dp) + 1024))}
+    attn = (dp, *(min(nwin, _cdiv(per_sm[k] * SMS, heads)) for k in ("fwd", "bwd")))
+    jobs = f32_jobs((("dwqkv", c, 3 * c, m), ("dwproj", c, c, m), ("dw1", c, hidden, m), ("dw2", hidden, c, m)))
+    return {"tok": tok, "mlp": (mlp_bn, (_cdiv(m, F32_BM), _cdiv(hidden, mlp_bn))), "attn": attn, "jobs": jobs,
+            "ln_blocks": _cdiv(m, F32_LN_ROWS), "launches": F32_LAUNCHES}
+
+
+def f32_tiling(plan):
+    """The int array swin_block_bwd takes (csrc/swinblock.cu, T_COUNT):
+    the column tiles of qkv, proj, the MLP rows, dh2, datt, dh1; the
+    attention blocks a head, forward and backward; the jobs' column tiles,
+    then their K shares."""
+    tok = plan["tok"]
+    vals = [tok["qkv"][0], tok["proj"][0], plan["mlp"][0], tok["dh2"][0], tok["datt"][0], tok["dh1"][0],
+            *plan["attn"][1:], *(j[4] for j in plan["jobs"]), *(j[5] for j in plan["jobs"])]
+    return (_INT * len(vals))(*vals)
 
 
 def _launch_bwd(x, params, gout, heads, ws, shift, eps, scales=None):
@@ -464,7 +524,6 @@ def _launch_bwd(x, params, gout, heads, ws, shift, eps, scales=None):
     m, nwin = b * h * w, b * h * w // n
     dt = {"dtype": x.dtype, "device": x.device}
     f32 = {"dtype": torch.float32, "device": x.device}
-    dx = torch.empty_like(x)
     grads = [torch.zeros(p.shape, **f32) for p in kp]
     tc = _route_of(x, params, heads, ws) == "tc"
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -475,25 +534,29 @@ def _launch_bwd(x, params, gout, heads, ws, shift, eps, scales=None):
             # fc1, proj and qkv
             widths = (c, c, c, hidden, c, hidden, c, 3 * c)
             scratch = [torch.empty((m, wd), **dt) for wd in widths]
+            dx = torch.empty_like(x)
             wg, nring, grid, _ = tc_plan(nwin, c, hidden, True)
             err = _tc_bwd_fn()(
                 _ptrs((x, gout, dx, *kp, s1, s2, *scratch, *grads)), b, h, w, c, heads, shift, hidden, wg, nring,
                 grid, tc_dw_rows(m, c, hidden), eps, stream,
             )
         else:
-            # the CUDA-core backward also reads W_qkv as (3C, C), W_proj^T,
-            # W_fc1 as (hidden, C), W_fc2 as (C, hidden); its scratch rows, window
-            # by window: LN1(x), the attention output, LN2(y), fc1's output and
-            # its GELU, the cotangents of fc2, fc1, proj and qkv; the bias map's
-            # per-window gradients (f32)
-            wt = tuple(kp[i].t().contiguous() for i in (2, 4, 8, 10))
-            widths = (c, c, c, hidden, hidden, c, hidden, c, 3 * c)
-            scratch = [torch.empty((m, wd), **dt) for wd in widths]
-            ds = torch.empty((nwin, heads * n * n), **f32)
+            # every operand in f32 (a bf16 one converted exactly); the f32
+            # scratch rows: LN1(x), qkv, att, y, LN2(y), T(g s2) (with
+            # scales), GELU(z1), dz1, dh (dh2, datt, dh1 in turn), dy1,
+            # T(dy1 s1) (with scales), dqkv; the row statistics
+            xf, gf, dxf = _aligned(x.float()), _aligned(gout.float()), torch.empty((m, c), **f32)
+            kpf = [_aligned(p.float()) for p in kp]
+            widths = (c, 3 * c, c, c, c, c if s2 is not None else 0, hidden, hidden, c, c,
+                      c if s1 is not None else 0, 3 * c)
+            scratch = [torch.empty((m, wd), **f32) if wd else None for wd in widths]
+            scratch.append(torch.empty(4 * m, **f32))
+            plan = f32_plan(m, c, hidden, heads, ws)
             err = _bwd_fn()(
-                _ptrs((x, gout, dx, *kp, *wt, s1, s2, *scratch, ds, *grads)), *_dims(x, params, heads, ws, shift),
-                _splits(c, hidden, heads * n * n), eps, stream,
+                _ptrs((xf, gf, dxf, *kpf, s1, s2, *scratch, *grads)),
+                f32_tiling(plan), *_dims(x, params, heads, ws, shift), eps, stream,
             )
+            dx = dxf.view(x.shape).to(x.dtype)
     if err != 0:
         raise RuntimeError(f"swin_{'tc' if tc else 'block'}_bwd launch failed with CUDA error {err}")
     k = BWD_LAUNCHES["tc" if tc else "cuda_core"]

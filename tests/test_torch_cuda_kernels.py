@@ -413,14 +413,14 @@ def test_rdtail_fwd_bwd_match_plain(device, shape, dtype):
     route = rdtail.route(c, inter, g, dtype)
     multiples = all(v % 8 == 0 for v in (c, inter, g))
     assert route == ("tc" if dtype == torch.bfloat16 and multiples and c <= rdtail.TC_MAX_C else "cuda_core")
-    n_bwd = rdtail.BWD_LAUNCHES[route]
+    n_fwd, n_bwd = rdtail.FWD_LAUNCHES[route], rdtail.BWD_LAUNCHES[route]
     with torch.no_grad():
         before = (rdtail.launches, rdtail.bwd_launches, rdtail.tc_launches, rdtail.tc_bwd_launches)
         out = rdtail._launch_fwd(x, params, 1e-6)
         grads = rdtail._launch_bwd(x, params, gout, 1e-6)
         tc = route == "tc"
         assert (rdtail.launches, rdtail.bwd_launches, rdtail.tc_launches, rdtail.tc_bwd_launches) == (
-            before[0] + 1, before[1] + n_bwd, before[2] + int(tc), before[3] + (n_bwd if tc else 0))
+            before[0] + n_fwd, before[1] + n_bwd, before[2] + int(tc), before[3] + (n_bwd if tc else 0))
         ref = rdtail.reference_tail(x, *params, eps=1e-6)
         ref_grads = rdtail.reference_tail_bwd(x, *params, gout, eps=1e-6)
     torch.cuda.synchronize()
@@ -444,7 +444,8 @@ def test_rdtail_cuda_core_route_matches_plain(device, shape, monkeypatch):
         out = rdtail._launch_fwd(x, params, 1e-6)
         grads = rdtail._launch_bwd(x, params, gout, 1e-6)
         assert (rdtail.launches, rdtail.bwd_launches, rdtail.tc_launches, rdtail.tc_bwd_launches) == (
-            before[0] + 1, before[1] + rdtail.BWD_LAUNCHES["cuda_core"], before[2], before[3])
+            before[0] + rdtail.FWD_LAUNCHES["cuda_core"], before[1] + rdtail.BWD_LAUNCHES["cuda_core"], before[2],
+            before[3])
         ref = rdtail.reference_tail(x, *params, eps=1e-6)
         ref_grads = rdtail.reference_tail_bwd(x, *params, gout, eps=1e-6)
     torch.cuda.synchronize()
@@ -490,9 +491,14 @@ def test_rdtail_refuses_what_it_does_not_take(device):
 # widths on a small image and at its canonical shape (batch 16, 128^2:
 # 4,096 windows); 4 x 4 windows (16 tokens) with a head dimension of 15 and
 # no width a multiple of 64; SwinIR-M's widths (C 180, 6 heads of 30, MLP
-# 360); the largest C and hidden the kernels take, at a head dimension of 32
+# 360); the largest C and hidden the kernels take, at a head dimension of
+# 32; then ragged shapes of the CUDA-core backward (every one off the
+# tensor-core route in bf16 too): M off its 128-row tiles, C and hidden
+# off 16, heads of 12, 10 and 30 channels, windows of 8 x 8, 5 x 5 and
+# 6 x 6
 SWIN_SHAPES = [(2, 16, 16, 96, 6, 8, 192), (16, 128, 128, 96, 6, 8, 192), (1, 24, 16, 60, 4, 4, 120),
-               (1, 16, 16, 180, 6, 8, 360), (1, 16, 16, swinblock.MAX_C, 6, 8, swinblock.MAX_HIDDEN)]
+               (1, 16, 16, 180, 6, 8, 360), (1, 16, 16, swinblock.MAX_C, 6, 8, swinblock.MAX_HIDDEN),
+               (3, 40, 40, 72, 6, 8, 150), (2, 20, 20, 40, 4, 5, 100), (1, 24, 24, 120, 4, 6, 200)]
 
 
 def _swin_inputs(device, dtype, b, h, w, c, heads, ws, hidden, seed=0):

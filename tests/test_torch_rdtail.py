@@ -287,3 +287,19 @@ def test_route_selection():
         assert rdtail.route(c, inter, g, torch.bfloat16) == "cuda_core", (c, inter, g)
     assert rdtail.route(rdtail.TC_MAX_C, 4 * rdtail.TC_MAX_C, rdtail.MAX_G, torch.bfloat16) == "tc"
     assert rdtail.BWD_LAUNCHES == {"tc": 4, "cuda_core": 4}
+
+
+def test_fwd_launches_agree_with_the_route():
+    """The tensor-core forward is one launch, the CUDA-core forward the three
+    of its planner (LayerNorm, fc1, fc2), and chip_smoke.py's launches of an
+    RDResUNet() step follow the route of each dtype (its 21 tails)."""
+    import chip_smoke
+
+    assert rdtail.FWD_LAUNCHES == {"tc": 1, "cuda_core": 3}
+    for shape in RD_TAILS:
+        assert len(rdtail.f32_fwd_plan(*shape)["launches"]) == rdtail.FWD_LAUNCHES["cuda_core"]
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "cuda_core")):
+        n = dict(zip(chip_smoke.COUNTERS, chip_smoke._per_step(kind="RDResUNet", dtype=dtype)))
+        tails = len(RD_TAILS)
+        assert (n["rdtail_fwd"], n["rdtail_tc_fwd"]) == (tails * rdtail.FWD_LAUNCHES[route], tails * (route == "tc"))
+        assert n["rdtail_bwd"] == tails * rdtail.BWD_LAUNCHES[route]

@@ -257,11 +257,13 @@ def test_route_keeps_other_shapes_on_the_cuda_cores(shape, dtype):
 
 def test_bwd_launches_agree_with_the_route():
     """Every route has its backward launch count, the tensor-core route's two
-    (the rows kernel and the weight gradients), and chip_smoke.py's launches
-    of a SwinIR() step follow the route of each dtype."""
+    (the rows kernel and the weight gradients), the CUDA-core route's the
+    thirteen of its planner's launches, and chip_smoke.py's launches of a
+    SwinIR() step follow the route of each dtype."""
     import chip_smoke
 
-    assert swinblock.BWD_LAUNCHES == {"tc": 2, "cuda_core": 2}
+    assert swinblock.BWD_LAUNCHES == {"tc": 2, "cuda_core": 13}
+    assert len(swinblock.f32_plan(16 * 128 * 128, 96, 192, 6, 8)["launches"]) == swinblock.BWD_LAUNCHES["cuda_core"]
     for shape in TC_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             assert swinblock.route(*shape, dtype) in swinblock.BWD_LAUNCHES

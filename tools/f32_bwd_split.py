@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of the f32 backward kernels of convchain and rdtail, launch
-by launch, at the full-width models' shapes (batch 16) on one H100.
+"""Device time of the f32 CUDA-core kernels of convchain, rdtail and the
+Swin block, launch by launch, at the full-width models' shapes (batch 16)
+on one H100.
 
     python3 tools/f32_bwd_split.py [--root DIR] [--reps N]
 
@@ -8,11 +9,13 @@ by launch, at the full-width models' shapes (batch 16) on one H100.
 one this script lies in), so two trees can be compared in one run on one
 card.  For every convchain layer shape of the ResUNet x4 and the RDResUNet
 decoder (``chip_smoke.conv_shapes``; prologue on and off as the models run
-them) and every RDNet tail of the RDResUNet (``chip_smoke.rd_shapes``) it
-prints the wall time of one backward call by CUDA events and the device
-time of each kernel it launches (``torch.profiler``, summed by kernel name
-over ``--reps`` calls), then the totals over one model backward.  The
-card's name and power limit come first.  Needs a CUDA device and nvcc.
+them), every RDNet tail of the RDResUNet (``chip_smoke.rd_shapes``;
+backward, then forward) and the default SwinIR's blocks (backward with
+DropPath keep-scales, as training runs it, unshifted and shifted) it
+prints the wall time of one call by CUDA events and the device time of
+each kernel it launches (``torch.profiler``, summed by kernel name over
+``--reps`` calls), then the totals over one model pass.  The card's name
+and power limit come first.  Needs a CUDA device and nvcc.
 """
 
 import argparse
@@ -53,7 +56,7 @@ def kernel_ms(fn, reps):
     out = {}
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0:
-            m = re.search(r"((?:\w|::)*(?:convchain|rdtail|f32g)(?:\w|::)*kernel)", evt.key)
+            m = re.search(r"((?:\w|::)*(?:convchain|rdtail|swin|f32g)(?:\w|::)*kernel)", evt.key)
             label = m.group(1) if m else "other"
             out[label] = out.get(label, 0.0) + evt.self_device_time_total / 1e3 / reps
     return out
@@ -73,7 +76,7 @@ def main():
         return 1
     sys.path.insert(0, str(Path(args.root).resolve()))
     import chip_smoke  # the tree's own shapes
-    from pssr2_tpu_torch.ops import convchain, rdtail
+    from pssr2_tpu_torch.ops import convchain, rdtail, swinblock
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip())
@@ -124,9 +127,31 @@ def main():
         print(f"rdtail f32 bwd M {m:5d} C {c:3d} inter {inter:4d} G {g:3d}: wall {wall:.4f} ms "
               f"({ops / wall / 1e9:.2f} TFLOP/s) | {_fmt(split)}")
         add("rdtail RDResUNet", 1, wall, split)
+        with torch.no_grad():
+            call = (lambda: rdtail._launch_fwd(x, params, EPS))
+            wall, split = events_ms(call, args.reps), kernel_ms(call, args.reps)
+        ops = 2.0 * m * inter * (c + g)
+        print(f"rdtail f32 fwd M {m:5d} C {c:3d} inter {inter:4d} G {g:3d}: wall {wall:.4f} ms "
+              f"({ops / wall / 1e9:.2f} TFLOP/s) | {_fmt(split)}")
+        add("rdtail RDResUNet forward", 1, wall, split)
+    c, heads, ws, hidden = chip_smoke.SWIN_C, chip_smoke.SWIN_HEADS, chip_smoke.SWIN_WS, chip_smoke.SWIN_HIDDEN
+    shape, n = (BATCH, chip_smoke.LR_RES, chip_smoke.LR_RES, c), ws * ws
+    mk = lambda *sz, sc=0.1: sc * torch.randn(*sz, device=dev, generator=gen)
+    x, gout = torch.randn(*shape, device=dev, generator=gen), torch.randn(*shape, device=dev, generator=gen)
+    params = (1.0 + mk(c), mk(c), mk(c, 3 * c, sc=c**-0.5), mk(3 * c), mk(c, c, sc=c**-0.5), mk(c), 1.0 + mk(c),
+              mk(c), mk(c, hidden, sc=c**-0.5), mk(hidden), mk(hidden, c, sc=hidden**-0.5), mk(c),
+              mk(heads, n, n, sc=0.5))
+    keep = (torch.rand(BATCH, device=dev, generator=gen) < 0.9).float() / 0.9
+    for shift in (0, ws // 2):
+        with torch.no_grad():
+            call = (lambda: swinblock._launch_bwd(x, params, gout, heads, ws, shift, EPS, (keep, keep.flip(0))))
+            wall, split = events_ms(call, args.reps), kernel_ms(call, args.reps)
+        print(f"swinblock f32 bwd {shape} shift {shift}: wall {wall:.4f} ms | {_fmt(split)}")
+        add("swinblock SwinIR", chip_smoke.SWIN_BLOCKS // 2, wall, split)
     for model, t in totals.items():
         wall = t.pop("wall")
-        print(f"total {model} f32 backward: wall {wall:.3f} ms | " + _fmt(t))
+        what = "forward" if model.endswith("forward") else "backward"
+        print(f"total {model.removesuffix(' forward')} f32 {what}: wall {wall:.3f} ms | " + _fmt(t))
     return 0
 
 
